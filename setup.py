@@ -21,13 +21,20 @@ setup(
     name="voiceprintrecognition-paddlepaddle-tpu",
     version=_version(),
     description="TPU-native (JAX/XLA/Pallas) speaker-verification framework",
-    packages=find_packages(include=["voiceprintrecognition_paddlepaddle_tpu*"]),
+    packages=find_packages(include=["voiceprintrecognition_paddlepaddle_tpu*",
+                                    "voiceprintrecognition_paddlepaddle_torch*"]),
     package_data={
         "voiceprintrecognition_paddlepaddle_tpu.native": ["*.cpp"],
+        # the PyTorch port's CUDA sources, built by nvcc at first use
+        "voiceprintrecognition_paddlepaddle_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "numpy", "scipy", "pyyaml",
         "scikit-learn", "tensorboardX",
     ],
+    extras_require={
+        # the PyTorch/CUDA port (voiceprintrecognition_paddlepaddle_torch)
+        "torch": ["torch", "numpy", "scipy"],
+    },
 )

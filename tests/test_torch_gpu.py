@@ -1,0 +1,84 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version, at the shapes the main path gives it. Every test here is marked
+``gpu`` and skips without a CUDA device. This file imports no jax (the GPU
+host has none); run it there with
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
+
+Bars: fbank max |d| < 2e-2 and p99 < 1e-3 (``tests/test_pallas_fbank.py``);
+trunk cos > 0.9999 and max |d| / scale < 5e-3
+(``tests/test_pallas_campplus.py:47-48``).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
+from voiceprintrecognition_paddlepaddle_torch.models.campplus import CAMPPlus
+from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+def _waves(seed, b, n):
+    return torch.from_numpy(
+        (np.random.RandomState(seed).randn(b, n) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n", [(8, 48000), (3, 128000), (1, 400)])
+def test_fbank_kernel_matches_plain_version(cuda, b, n):
+    w = _waves(0, b, n).to(cuda)
+    before = fk.fbank_fused.launches
+    got = fk.fbank_fused(w, n_mels=80)
+    torch.cuda.synchronize()
+    assert fk.fbank_fused.launches == before + 1
+    d = (got - fk.fbank_fused_reference(w, n_mels=80)).abs().cpu().numpy()
+    assert d.max() < 2e-2 and np.percentile(d, 99) < 1e-3
+
+
+@pytest.fixture(scope="module")
+def model(cuda):
+    torch.manual_seed(0)
+    m = CAMPPlus(80, embd_dim=192)
+    for mod in m.modules():
+        if isinstance(mod, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+            mod.running_mean.normal_(0.0, 0.2)
+            mod.running_var.uniform_(0.5, 1.5)
+            mod.weight.data.uniform_(0.5, 1.5)
+            mod.bias.data.normal_(0.0, 0.2)
+    return m.to(cuda).eval().requires_grad_(False)
+
+
+@pytest.mark.parametrize("t_raw,tvalids", [
+    (798, None), (798, [399, 250, 37]), (298, None), (148, [74, 1, 60]),
+    (98, None)])
+def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids):
+    packed = tk.pack_trunk(model)
+    feats = torch.from_numpy(np.random.RandomState(1).randn(
+        3, t_raw, 80).astype(np.float32)).to(cuda)
+    fcm = model.FCM_0(feats)
+    before = tk.trunk_stats.launches
+    got = tk.trunk_stats(packed, fcm, tvalids)
+    torch.cuda.synchronize()
+    assert tk.trunk_stats.launches == before + 1
+    ref = tk.trunk_stats_reference(packed, fcm, tvalids)
+    got, ref = got.double().cpu(), ref.double().cpu()
+    assert torch.isfinite(got).all()
+    cos = (got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))
+    assert float(cos.min()) > 0.9999
+    assert float((got - ref).abs().max() / ref.abs().max()) < 5e-3
+
+
+def test_trunk_rejects_buckets_beyond_8s(cuda, model):
+    packed = tk.pack_trunk(model)
+    with pytest.raises(NotImplementedError, match="FCM kernel not yet ported"):
+        tk.trunk_stats(packed, torch.zeros(1, 802, 320, device=cuda))

@@ -1,0 +1,125 @@
+"""PyTorch port, packaging and host helpers: importing the port never
+loads jax; the copied host helpers (``bucket_length``, ``AudioSegment``)
+agree with the JAX package's; the kernel build reports a missing
+toolchain instead of running anything else."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from voiceprintrecognition_paddlepaddle_torch import _build
+from voiceprintrecognition_paddlepaddle_torch.data_utils.collate import \
+    bucket_length
+from voiceprintrecognition_paddlepaddle_torch.ops.audio import AudioSegment
+from voiceprintrecognition_paddlepaddle_tpu.data_utils import collate as jcollate
+from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \
+    AudioSegment as JaxAudioSegment
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "voiceprintrecognition_paddlepaddle_torch")
+MODULES = ["predict", "models.trunk_kernel", "models.convert",
+           "ops.fbank_kernel", "ops.features", "_build"]
+
+
+def test_importing_the_port_leaves_jax_out():
+    code = ("import sys\n"
+            + "".join(f"import voiceprintrecognition_paddlepaddle_torch.{m}\n"
+                      for m in MODULES)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' "
+              "or m.startswith(('jax.', 'flax', "
+              "'voiceprintrecognition_paddlepaddle_tpu')))\n"
+              "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_never_import_jax():
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(dirpath, name), encoding="utf-8") as f:
+                    text = f.read()
+                assert not re.search(
+                    r"^\s*(import|from)\s+(jax|flax|"
+                    r"voiceprintrecognition_paddlepaddle_tpu)\b", text,
+                    re.MULTILINE), name
+
+
+@pytest.mark.parametrize("n", [1, 16000, 16001, 56000, 64000, 128000,
+                               128001, 460800])
+def test_bucket_length_matches_jax(n):
+    assert bucket_length(n) == jcollate.bucket_length(n)
+
+
+def test_audio_segment_matches_jax():
+    path = os.path.join(ROOT, "dataset", "a_1.wav")
+    ours, theirs = AudioSegment.from_file(path), JaxAudioSegment.from_file(path)
+    np.testing.assert_array_equal(ours.samples, theirs.samples)
+    assert ours.sample_rate == theirs.sample_rate
+    ours.normalize(target_db=-20)
+    theirs.normalize(target_db=-20)
+    np.testing.assert_allclose(ours.samples, theirs.samples, rtol=1e-6)
+    with open(path, "rb") as f:
+        data = f.read()
+    np.testing.assert_array_equal(AudioSegment.from_bytes(data).samples,
+                                  AudioSegment.from_file(path).samples)
+    # a band-limited tone: the JAX package may resample natively, so the
+    # two agree on content well inside both passbands
+    x = (0.3 * np.sin(2 * np.pi * 440 * np.arange(4410) / 44100)).astype(
+        np.float32)
+    a = AudioSegment.from_ndarray(x, 44100).resample(16000)
+    b = JaxAudioSegment.from_ndarray(x, 44100).resample(16000)
+    assert a.num_samples == b.num_samples == 1600
+    np.testing.assert_allclose(a.samples[100:-100], b.samples[100:-100],
+                               atol=2e-3)
+
+
+def test_wav_roundtrip(tmp_path):
+    x = (np.random.RandomState(1).randn(1600) * 0.1).astype(np.float32)
+    path = tmp_path / "x.wav"
+    AudioSegment(x, 16000).to_wav_file(path)
+    back = AudioSegment.from_file(str(path))
+    assert back.sample_rate == 16000
+    np.testing.assert_allclose(back.samples, x, atol=1.0 / 16000)
+
+
+def test_check_raises_on_cuda_error():
+    _build.check(0, "k")
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        _build.check(9, "k")
+
+
+def test_build_names_missing_toolchain(monkeypatch):
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda _: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build._nvcc()
+
+
+def test_chip_smoke_config_is_cam_yml_and_its_weights_load():
+    """chip_smoke.py keeps configs/cam++.yml as a dict (the GPU host has
+    no PyYAML) and builds its weights in the flax layout."""
+    import torch
+    import yaml
+
+    import chip_smoke
+    from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
+        CAMPPlus
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+
+    with open(os.path.join(ROOT, "configs", "cam++.yml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    for key in ("dataset_conf", "preprocess_conf", "model_conf"):
+        assert chip_smoke.CONFIG[key] == cfg[key], key
+    model = CAMPPlus(80, embd_dim=192)
+    state = jax_to_torch_state(chip_smoke.random_flax_variables(model, 0))
+    model.load_state_dict(state)
+    bn = model.TDNNLayer_0._NonLinear_0.BatchNorm_0
+    assert not torch.allclose(bn.running_var, torch.ones_like(bn.running_var))

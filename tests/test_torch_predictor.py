@@ -1,0 +1,148 @@
+"""PyTorch port, the slice as a whole: ``Predictor(device="cpu")`` on the
+demo wavs against the JAX exact-length embedding (JAX features and
+``CAMPPlus.apply`` on the unpadded clip), plus the Predictor's database
+surface (register / recognition / contrast / remove_user, the pickle
+index, the path-traversal guard) and its limits.
+
+The port pads each clip to its bucket and takes the masked path, whose
+CAM context is length-aware, so it is compared with the exact-length
+embedding and not with the JAX CPU Predictor's padded XLA path. Bar:
+cos > 0.999 (``tests/test_pallas_campplus.py:114``).
+"""
+
+import os
+import pickle
+import shutil
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from test_torch_helpers import FULL, cos_min, synth_campplus
+from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \
+    AudioSegment as JaxAudioSegment
+from voiceprintrecognition_paddlepaddle_tpu.ops.features import \
+    compute_feature
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WAVS = [os.path.join(ROOT, "dataset", f"{n}.wav")
+        for n in ("a_1", "a_2", "b_1", "b_2")]
+
+
+def _configs():
+    with open(os.path.join(ROOT, "configs", "cam++.yml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    return {k: cfg[k] for k in ("dataset_conf", "preprocess_conf",
+                                "model_conf")}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    jm, v, tm = synth_campplus(FULL, seed=3)
+    root = tmp_path_factory.mktemp("torch_predictor")
+    model_path = str(root / "model.pt")
+    torch.save(tm.state_dict(), model_path)
+    japply = jax.jit(lambda x: jm.apply(v, x, train=False))
+
+    def jax_exact(path_or_samples):
+        if isinstance(path_or_samples, str):
+            seg = JaxAudioSegment.from_file(path_or_samples)
+            seg.normalize(target_db=-20)
+            samples = seg.samples
+        else:
+            samples = path_or_samples
+        feats = compute_feature(samples[None], "Fbank", sr=16000, n_mels=80)
+        return np.asarray(japply(feats))[0]
+
+    return model_path, jax_exact, root
+
+
+def _predictor(world, db=None, **kw):
+    model_path, _, _ = world
+    return Predictor(_configs(), model_path=model_path, audio_db_path=db,
+                     device="cpu", **kw)
+
+
+def test_predict_matches_jax_exact_length(world):
+    _, jax_exact, _ = world
+    pred = _predictor(world)
+    for path in WAVS[:3] + [os.path.join(ROOT, "audio_db", "user_a", "0.wav")]:
+        got = pred.predict(path)
+        assert got.shape == (192,) and np.isfinite(got).all()
+        assert cos_min(jax_exact(path)[None], got[None]) > 0.999, path
+
+
+def test_predict_batch_exact_and_padded_rows_match_jax(world):
+    """Two 2 s clips fill their bucket (the exact-length path); a ragged
+    batch takes the masked path. Each row holds against JAX's
+    exact-length embedding of that clip."""
+    _, jax_exact, _ = world
+    pred = _predictor(world)
+    rng = np.random.RandomState(5)
+    exact = [(rng.randn(32000) * 0.05).astype(np.float32) for _ in range(2)]
+    ragged = [(rng.randn(n) * 0.05).astype(np.float32)
+              for n in (20000, 31000, 9000)]
+    for batch in (exact, ragged):
+        got = pred.predict_batch(batch)
+        assert got.shape == (len(batch), 192)
+        for i, s in enumerate(batch):
+            assert cos_min(jax_exact(s)[None], got[i:i + 1]) > 0.999, i
+
+
+def test_database_register_recognize_remove(world):
+    _, _, root = world
+    db = str(root / "db")
+    shutil.copytree(os.path.join(ROOT, "audio_db"), db)
+    pred = _predictor(world, db=db, threshold=0.0)
+    assert sorted(set(pred.get_users())) == ["user_a", "user_b"]
+    ok, msg = pred.register(WAVS[0], "speaker_a")
+    assert ok, msg
+    assert os.path.exists(os.path.join(db, "speaker_a", "0.wav"))
+    name, score = pred.recognition(WAVS[0])
+    assert name == "speaker_a" and score > 0.99
+    assert -1.0 <= pred.contrast(WAVS[0], WAVS[1]) <= 1.0
+    with open(os.path.join(db, "audio_indexes.bin"), "rb") as f:
+        index = pickle.load(f)
+    assert set(index) == {"users_name", "faces_feature", "users_image_path"}
+    assert index["faces_feature"].shape == (3, 192)
+    # a fresh Predictor reloads the index instead of re-embedding
+    again = _predictor(world, db=db)
+    np.testing.assert_allclose(again.audio_feature, pred.audio_feature)
+    assert pred.remove_user("speaker_a")
+    assert not os.path.exists(os.path.join(db, "speaker_a"))
+    assert "speaker_a" not in pred.get_users()
+
+
+@pytest.mark.parametrize("name", ["../evil", "a/b", "", "x\\y"])
+def test_register_rejects_path_traversal(world, name):
+    _, _, root = world
+    db = str(root / f"db_guard_{abs(hash(name))}")
+    pred = _predictor(world, db=db)
+    ok, _ = pred.register(WAVS[0], name)
+    assert not ok
+    assert os.listdir(db) == []
+
+
+def test_bucket_above_8s_raises(world):
+    pred = _predictor(world)
+    with pytest.raises(NotImplementedError, match="FCM kernel not yet ported"):
+        pred.predict_batch([np.zeros(128001, np.float32)])
+
+
+def test_configs_from_yaml_path(world, tmp_path):
+    path = tmp_path / "cfg.yml"
+    path.write_text(yaml.safe_dump(_configs()))
+    model_path, _, _ = world
+    pred = Predictor(str(path), model_path=model_path, device="cpu")
+    assert pred.predict(WAVS[0]).shape == (192,)
+
+
+def test_cuda_device_without_cuda_raises(world):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model_path, _, _ = world
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(_configs(), model_path=model_path)

@@ -1,0 +1,93 @@
+"""Build and load the port's CUDA kernels.
+
+``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
+plain C interface, at first use, into ``build/torch_kernels/<hash>/``
+beside the package (a directory ``.gitignore`` lists). The hash covers
+the sources and the flags, so an edited kernel rebuilds and an unchanged
+one loads from the cache. The library is loaded with ``ctypes``; each C
+entry point returns ``cudaGetLastError()`` and ``check`` raises when it is
+not 0.
+
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+__all__ = ["kernel_library", "check", "NVCC_FLAGS"]
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+_BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build reported."""
+
+    def __init__(self, lib, path, build_seconds, ptxas_log, cached):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.ptxas_log = ptxas_log
+        self.cached = cached
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (sm_90a) to build")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library():
+    """Build (once per source hash) and load the kernel library."""
+    sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
+    so_path = os.path.join(out_dir, "libvpr_kernels.so")
+    log_path = os.path.join(out_dir, "ptxas.log")
+    cached = os.path.exists(so_path)
+    t0 = time.perf_counter()
+    if not cached:
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        with open(log_path, "w", encoding="utf-8") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, so_path)
+    seconds = time.perf_counter() - t0
+    ptxas = ""
+    if os.path.exists(log_path):
+        with open(log_path, encoding="utf-8") as f:
+            ptxas = f.read()
+    return KernelLibrary(ctypes.CDLL(so_path), so_path, seconds, ptxas,
+                         cached)
+
+
+def check(err, name):
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")

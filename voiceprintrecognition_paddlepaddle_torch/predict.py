@@ -1,0 +1,327 @@
+"""Inference surface: embeddings, 1:1 contrast and 1:N recognition over a
+persistent audio database (counterpart of the JAX ``predict.py``).
+
+The embed path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
+fbank kernel, CMN, FCM (plain convs), the whole-trunk kernel and the
+DenseBN head. On ``device="cuda"`` it runs the CUDA kernels and never
+falls back; on ``device="cpu"`` the same wrappers run their plain
+PyTorch versions. Batches pad to bucketed lengths and carry per-utterance
+length ratios, so a padded clip gives its exact-length embedding.
+
+The audio database keeps the JAX package's pickle ``audio_indexes.bin``
+format (users_name / faces_feature / users_image_path).
+"""
+
+import os
+import pickle
+import shutil
+from io import BufferedReader
+
+import numpy as np
+import torch
+
+from .data_utils.collate import bucket_length
+from .models import build_model
+from .models.trunk_kernel import MAX_T_RAW, make_campplus_masked_embed_fn
+from .ops.audio import AudioSegment
+from .ops.features import AudioFeaturizer
+from .utils.logger import logger
+from .utils.utils import dict_to_object
+
+__all__ = ["Predictor", "MAX_BUCKET_SAMPLES"]
+
+# longest bucket the trunk kernel serves without the FCM kernel: 8 s at
+# 16 kHz (798 feature frames)
+MAX_BUCKET_SAMPLES = 128000
+
+
+def _load_configs(configs):
+    if isinstance(configs, str):
+        import yaml  # only for a path: the GPU host does not list PyYAML
+        with open(configs, "r", encoding="utf-8") as f:
+            configs = yaml.safe_load(f.read())
+    return dict_to_object(configs)
+
+
+class Predictor:
+    def __init__(self, configs, threshold=0.6, audio_db_path=None,
+                 model_path="models/CAMPPlus_Fbank/best_model/model.pt",
+                 device="cuda"):
+        """``model_path``: a torch ``state_dict`` file (or a directory
+        holding ``model.pt``) written from ``models.convert``.
+        ``device``: ``"cuda"`` (default) raises when no CUDA device is
+        present; pass ``"cpu"`` for the plain PyTorch versions."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Predictor(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run on the CPU")
+        self.configs = _load_configs(configs)
+        self.threshold = threshold
+        self._audio_featurizer = AudioFeaturizer(
+            feature_method=self.configs.preprocess_conf.feature_method,
+            method_args=self.configs.preprocess_conf.get("method_args", {}))
+        self.model = build_model(self._audio_featurizer.feature_dim,
+                                 self.configs)
+        if os.path.isdir(model_path):
+            model_path = os.path.join(model_path, "model.pt")
+        if not os.path.exists(model_path):
+            raise FileNotFoundError(f"model not found: {model_path}")
+        state = torch.load(model_path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(state)
+        self.model.to(self.device).eval()
+        logger.info(f"loaded model weights: {model_path}")
+        self._embed = make_campplus_masked_embed_fn(self.model,
+                                                    self._audio_featurizer)
+
+        # voiceprint database state (reference ``predict.py:69-86``)
+        self.audio_feature = None
+        self.audio_feature_mean = None
+        self.users_name = []
+        self.users_audio_path = []
+        self.users_name_mean = []
+        self.audio_db_path = audio_db_path
+        if self.audio_db_path is not None:
+            self.audio_indexes_path = os.path.join(audio_db_path,
+                                                   "audio_indexes.bin")
+            self.__load_audio_db(self.audio_db_path)
+
+    # ------------------------------------------------------------------
+    # audio db persistence (pickle format of reference predict.py:89-109)
+    # ------------------------------------------------------------------
+    def __load_audio_indexes(self):
+        if not os.path.exists(self.audio_indexes_path):
+            return
+        with open(self.audio_indexes_path, "rb") as f:
+            indexes = pickle.load(f)
+        for name, feature, path in zip(indexes["users_name"],
+                                       indexes["faces_feature"],
+                                       indexes["users_image_path"]):
+            if not os.path.exists(path):
+                continue
+            self.users_name.append(name)
+            self.users_audio_path.append(path)
+            feature = np.asarray(feature)
+            self.audio_feature = (
+                feature[None] if self.audio_feature is None
+                else np.vstack((self.audio_feature,
+                                feature[None] if feature.ndim == 1
+                                else feature)))
+
+    def __write_index(self):
+        with open(self.audio_indexes_path, "wb") as f:
+            pickle.dump({"users_name": self.users_name,
+                         "faces_feature": self.audio_feature,
+                         "users_image_path": self.users_audio_path}, f)
+
+    def __load_audio_db(self, audio_db_path):
+        self.__load_audio_indexes()
+        os.makedirs(audio_db_path, exist_ok=True)
+        audios_path = []
+        for name in sorted(os.listdir(audio_db_path)):
+            audio_dir = os.path.join(audio_db_path, name)
+            if not os.path.isdir(audio_dir):
+                continue
+            for file in sorted(os.listdir(audio_dir)):
+                audios_path.append(
+                    os.path.join(audio_dir, file).replace("\\", "/"))
+        if len(audios_path) == 0 and self.audio_feature is None:
+            return
+        logger.info("loading voiceprint database...")
+        batch_size = self.configs.dataset_conf.eval_conf.batch_size
+        pending = []
+        for audio_path in audios_path:
+            if audio_path in self.users_audio_path:
+                continue
+            seg = self._load_audio(audio_path)
+            self.users_name.append(os.path.basename(
+                os.path.dirname(audio_path)))
+            self.users_audio_path.append(audio_path)
+            pending.append(seg.samples)
+            if len(pending) == batch_size:
+                self._append_features(pending)
+                pending = []
+        if pending:
+            self._append_features(pending)
+        if not (self.audio_feature is None
+                or len(self.audio_feature) == len(self.users_name)
+                == len(self.users_audio_path)):
+            raise RuntimeError("voiceprint database count mismatch")
+        self.__write_index()
+        self._recompute_means()
+        logger.info(f"voiceprint database ready: "
+                    f"{len(self.users_name_mean)} users "
+                    f"({self.users_name_mean})")
+
+    def _append_features(self, samples_list):
+        feats = self.predict_batch(samples_list)
+        self.audio_feature = (feats if self.audio_feature is None
+                              else np.vstack((self.audio_feature, feats)))
+
+    def _recompute_means(self):
+        self.users_name_mean = []
+        self.audio_feature_mean = None
+        if self.audio_feature is None:
+            return
+        for name in sorted(set(self.users_name)):
+            rows = [i for i, n in enumerate(self.users_name) if n == name]
+            mean = self.audio_feature[rows].mean(axis=0)
+            self.audio_feature_mean = (
+                mean[None] if self.audio_feature_mean is None
+                else np.vstack((self.audio_feature_mean, mean[None])))
+            self.users_name_mean.append(name)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def normalize_features(features):
+        return features / np.linalg.norm(features, axis=1, keepdims=True)
+
+    @staticmethod
+    def cosine_score(f1, f2):
+        """Cosine similarity between two 1-D embeddings."""
+        return float(np.dot(f1, f2)
+                     / (np.linalg.norm(f1) * np.linalg.norm(f2)))
+
+    def __retrieval(self, np_feature, threshold=None):
+        """Cosine retrieval against per-user mean voiceprints."""
+        if threshold is None:
+            threshold = self.threshold
+        feats = self.normalize_features(np.asarray(np_feature, np.float32))
+        means = self.normalize_features(
+            self.audio_feature_mean.astype(np.float32))
+        results = []
+        for sim in feats @ means.T:
+            idx = int(np.argmax(sim))
+            score = float(sim[idx])
+            if score >= threshold:
+                results.append([self.users_name_mean[idx], round(score, 5)])
+            else:
+                results.append([None, None])
+        return results
+
+    def _load_audio(self, audio_data, sample_rate=16000):
+        """Accepts path / file object / bytes / ndarray / AudioSegment."""
+        if isinstance(audio_data, (str, BufferedReader)):
+            segment = AudioSegment.from_file(audio_data)
+        elif isinstance(audio_data, np.ndarray):
+            segment = AudioSegment.from_ndarray(audio_data, sample_rate)
+        elif isinstance(audio_data, bytes):
+            segment = AudioSegment.from_bytes(audio_data)
+        elif isinstance(audio_data, AudioSegment):
+            segment = audio_data
+        else:
+            raise TypeError(f"unsupported audio type: {type(audio_data)}")
+        ds_conf = self.configs.dataset_conf.dataset
+        if segment.duration < ds_conf.min_duration:
+            raise ValueError(f"audio too short: minimum "
+                             f"{ds_conf.min_duration}s, got "
+                             f"{segment.duration}s")
+        if segment.sample_rate != ds_conf.sample_rate:
+            segment.resample(ds_conf.sample_rate)
+        if ds_conf.use_dB_normalization:
+            segment.normalize(target_db=ds_conf.target_dB)
+        return segment
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def predict(self, audio_data, sample_rate=16000):
+        """Single-utterance embedding."""
+        seg = self._load_audio(audio_data, sample_rate)
+        return self.predict_batch([seg.samples])[0]
+
+    def predict_batch(self, audios_data, sample_rate=16000, batch_size=32):
+        """Batched embeddings: each chunk pads to its bucket length and
+        carries per-utterance length ratios. Buckets beyond 8 s raise
+        ``NotImplementedError`` until the FCM kernel is ported."""
+        samples = []
+        for audio in audios_data:
+            if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
+                samples.append(audio)
+            else:
+                samples.append(self._load_audio(audio, sample_rate).samples)
+        features = []
+        for i in range(0, len(samples), batch_size):
+            chunk = samples[i:i + batch_size]
+            max_len = bucket_length(max(len(s) for s in chunk))
+            if max_len > MAX_BUCKET_SAMPLES:
+                raise NotImplementedError(
+                    f"FCM kernel not yet ported: buckets above "
+                    f"{MAX_BUCKET_SAMPLES} samples ({MAX_T_RAW} frames) "
+                    f"need it, got {max_len}; see ROADMAP.md")
+            waves = np.zeros((len(chunk), max_len), np.float32)
+            ratios = np.ones((len(chunk),), np.float32)
+            for j, s in enumerate(chunk):
+                waves[j, :len(s)] = s
+                ratios[j] = len(s) / max_len
+            exact = bool(np.all(ratios == 1.0))
+            emb = self._embed(torch.from_numpy(waves).to(self.device),
+                              None if exact else ratios)
+            features.append(emb.cpu().numpy())
+        return np.concatenate(features, axis=0)
+
+    def contrast(self, audio_data1, audio_data2):
+        """1:1 cosine similarity."""
+        return self.cosine_score(self.predict(audio_data1),
+                                 self.predict(audio_data2))
+
+    def register(self, audio_data, user_name: str, sample_rate=16000):
+        """Add a voiceprint: writes ``audio_db/<user>/N.wav`` and updates
+        the pickle index and the per-user mean."""
+        if (not user_name or ".." in user_name
+                or any(c in user_name for c in ("/", "\\", "\x00"))):
+            # the name becomes a directory under audio_db — never let it
+            # traverse outside (serving front ends pass client input here)
+            return False, f"invalid user name: {user_name!r}"
+        seg = self._load_audio(audio_data, sample_rate)
+        feature = self.predict(seg)
+        self.audio_feature = (feature[None] if self.audio_feature is None
+                              else np.vstack((self.audio_feature,
+                                              feature[None])))
+        user_dir = os.path.join(self.audio_db_path, user_name)
+        n = len(os.listdir(user_dir)) if os.path.exists(user_dir) else 0
+        audio_path = os.path.join(user_dir, f"{n}.wav")
+        os.makedirs(user_dir, exist_ok=True)
+        seg.to_wav_file(audio_path)
+        self.users_audio_path.append(audio_path.replace("\\", "/"))
+        self.users_name.append(user_name)
+        self.__write_index()
+        if user_name in self.users_name_mean:
+            idx = self.users_name_mean.index(user_name)
+            rows = [i for i, v in enumerate(self.users_name)
+                    if v == user_name]
+            self.audio_feature_mean[idx] = \
+                self.audio_feature[rows].mean(axis=0)
+        else:
+            self.users_name_mean.append(user_name)
+            self.audio_feature_mean = (
+                feature[None] if self.audio_feature_mean is None
+                else np.vstack((self.audio_feature_mean, feature[None])))
+        return True, "register success"
+
+    def recognition(self, audio_data, threshold=None, sample_rate=16000):
+        """1:N retrieval; returns [name, score] or [None, None]."""
+        if threshold:
+            self.threshold = threshold
+        feature = self.predict(audio_data, sample_rate=sample_rate)
+        return self.__retrieval(feature[None])[0]
+
+    def get_users(self):
+        return self.users_name
+
+    def remove_user(self, user_name):
+        """Delete a user's rows, files and mean voiceprint."""
+        if user_name not in self.users_name:
+            return False
+        for index in sorted((i for i, n in enumerate(self.users_name)
+                             if n == user_name), reverse=True):
+            del self.users_name[index]
+            del self.users_audio_path[index]
+            self.audio_feature = np.delete(self.audio_feature, index, axis=0)
+        self.__write_index()
+        shutil.rmtree(os.path.join(self.audio_db_path, user_name),
+                      ignore_errors=True)
+        idx = self.users_name_mean.index(user_name)
+        del self.users_name_mean[idx]
+        self.audio_feature_mean = np.delete(self.audio_feature_mean, idx,
+                                            axis=0)
+        return True
