@@ -8,17 +8,27 @@ Phases (any failure raises and the script exits non-zero):
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
 2. build    nvcc builds csrc/*.cu for sm_90a; prints time and ptxas output
 3. fbank    the fbank kernel against its plain version, b256 x 3 s
-4. trunk    the trunk kernel against its plain version (both bf16), full
+4. fcm      the FCM kernel against its plain version (both bf16) at full
+            CAM++ width: b8 x 298 and b8 x 297 frames (where the JAX
+            package's single-pass kernel runs), b4 x 1598 (the 16 s
+            bucket) and b2 x 3198 (the 32 s bucket, where it runs the
+            chunked kernel)
+5. trunk    the trunk kernel against its plain version (both bf16), full
             CAM++ width with random weights and BN statistics from a seed,
             converted from the flax layout by models/convert.py:
-            b256 x 298 frames, 3 x 798 frames, and a ragged padded batch
-            held row by row against its exact-length embeddings
-5. main     Predictor(device="cuda"): register / recognition / contrast
-            over the demo wavs and predict_batch over 64 seeded 1-8 s
-            clips; both kernels' launch counters must rise, and four
-            embeddings are held against the eager fp32 model
-6. times    CUDA-event times of each kernel against its plain version and
+            b256 x 298 frames, 3 x 798 frames, 1598 and 3198 frames exact
+            and ragged, and ragged padded 8 s and 32 s batches held row by
+            row against their exact-length embeddings
+6. main     Predictor(device="cuda"): register / recognition / contrast
+            over the demo wavs, predict_batch over 64 seeded 1-8 s clips
+            and 8 seeded 9-30 s clips (the 32 s bucket), a 15 s clip (the
+            16 s bucket), and a 33 s clip that runs the plain
+            model; every kernel's launch counter must rise, and 1-8 s,
+            16 s and 32 s embeddings are held against the eager fp32 model
+7. times    CUDA-event times of each kernel against its plain version and
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
+            and b32 x 16 s; the FCM kernel also against the model's plain
+            FCM (cuDNN), and the stages of the b32 x 16 s embed
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.
@@ -62,11 +72,14 @@ CONFIG = {
 
 FBANK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/fbank.cu"
 TRUNK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/campplus_trunk.cu"
+FCM_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/fcm.cu"
 FBANK_TPU = "voiceprintrecognition_paddlepaddle_tpu/ops/pallas_fbank.py:79"
 TRUNK_TPU = ("voiceprintrecognition_paddlepaddle_tpu/models/"
              "pallas_campplus.py:317")
 TRUNK_TPU_LOOPED = ("voiceprintrecognition_paddlepaddle_tpu/models/"
                     "pallas_campplus.py:458")
+FCM_TPU = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:251"
+FCM_TPU_CHUNKED = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:442"
 
 
 def log(msg):
@@ -137,6 +150,42 @@ def cos_min(a, b):
     return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
 
 
+def check_trunk(name, model, packed, fcm_out, tv, tk):
+    """Trunk kernel against its plain version; returns the stats max |d|."""
+    s_k = tk.trunk_stats(packed, fcm_out, tv)
+    s_p = tk.trunk_stats_reference(packed, fcm_out, tv)
+    e_k = model.DenseBN_0(s_k)
+    e_p = model.DenseBN_0(s_p)
+    torch.cuda.synchronize()
+    sd = float((s_k - s_p).abs().max())
+    ed = float((e_k - e_p).abs().max())
+    c_s, c_e = cos_min(s_k, s_p), cos_min(e_k, e_p)
+    rel = sd / float(s_p.abs().max())
+    log(f"[trunk] {name}: stats cos={c_s:.6f} max|d|={sd:.3e} "
+        f"(rel {rel:.3e}); embed cos={c_e:.6f} max|d|={ed:.3e} "
+        f"(bars cos > 0.9999, max|d| < 5e-3)")
+    if not (torch.isfinite(s_k).all() and c_s > 0.9999
+            and c_e > 0.9999 and ed < 5e-3 and rel < 5e-3):
+        raise AssertionError(f"trunk kernel disagrees ({name})")
+    return sd
+
+
+def check_ragged(embed, rng, bucket, valids, dev):
+    """A ragged padded batch, each row against its exact-length run."""
+    padded = np.zeros((len(valids), bucket), np.float32)
+    for i, n in enumerate(valids):
+        padded[i, :n] = rng.randn(n) * 0.1
+    ratios = np.asarray([n / bucket for n in valids], np.float32)
+    got = embed(torch.from_numpy(padded).to(dev), ratios)
+    for i, n in enumerate(valids):
+        exact = embed(torch.from_numpy(padded[i:i + 1, :n]).to(dev))
+        c = cos_min(exact, got[i:i + 1])
+        log(f"[trunk] ragged {bucket}-sample bucket, row {i} ({n} samples): "
+            f"cos vs exact-length = {c:.6f} (bar 0.999)")
+        if c <= 0.999:
+            raise AssertionError("padded row disagrees with exact length")
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -152,6 +201,8 @@ def main():
         CAMPPlus
     from voiceprintrecognition_paddlepaddle_torch.models.convert import \
         jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
     from voiceprintrecognition_paddlepaddle_torch.models import \
         trunk_kernel as tk
     from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
@@ -192,55 +243,55 @@ def main():
     if not (got.shape == (256, 298, 80) and fb_max < 2e-2 and fb_p99 < 1e-3):
         raise AssertionError("fbank kernel disagrees with its plain version")
 
-    # ---- 4. trunk kernel vs plain ----------------------------------------
+    # ---- 4. FCM kernel vs plain -----------------------------------------
     model = CAMPPlus(80, embd_dim=192)
     model.load_state_dict(jax_to_torch_state(random_flax_variables(model,
                                                                    SEED)))
     model.to(dev).eval().requires_grad_(False)
+    packed_fcm = fkm.pack_fcm(model)
+    fcm_max = 0.0
+    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198)):
+        x = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
+        got = fkm.fcm_fused(packed_fcm, x)
+        ref = fkm.fcm_reference(packed_fcm, x)
+        torch.cuda.synchronize()
+        g, r = got.double(), ref.double()
+        d = float((g - r).abs().max())
+        scale = max(1.0, float(r.abs().max()))
+        c = float((g * r).sum() / (g.norm() * r.norm()))
+        log(f"[fcm] b{b} x {t} frames: shape {tuple(got.shape)} cos={c:.8f} "
+            f"max|d|={d:.3e} max|d|/scale={d / scale:.3e} (bars cos > 0.9999, "
+            f"max|d|/scale < 5e-2)")
+        if not (got.shape == (b, t, 320) and torch.isfinite(g).all()
+                and c > 0.9999 and d / scale < 5e-2):
+            raise AssertionError(f"FCM kernel disagrees (b{b} x {t})")
+        fcm_max = max(fcm_max, d)
+
+    # ---- 5. trunk kernel vs plain ----------------------------------------
     packed = tk.pack_trunk(model)
     feat = features.AudioFeaturizer("Fbank", {"sr": 16000, "n_mels": 80})
+    embed = tk.make_campplus_masked_embed_fn(model, feat)
     with torch.no_grad():
         fcm_b256 = model.FCM_0(feat(waves))
-        cases = [("b256 x 298 frames", fcm_b256, None)]
+        trunk_max = check_trunk("b256 x 298 frames", model, packed, fcm_b256,
+                                None, tk)
         w8 = torch.from_numpy(
             (rng.randn(3, 128000) * 0.1).astype(np.float32)).to(dev)
-        cases.append(("3 x 798 frames", model.FCM_0(feat(w8)), None))
-        trunk_max = None
-        for name, fcm_out, tv in cases:
-            s_k = tk.trunk_stats(packed, fcm_out, tv)
-            s_p = tk.trunk_stats_reference(packed, fcm_out, tv)
-            e_k = model.DenseBN_0(s_k)
-            e_p = model.DenseBN_0(s_p)
-            torch.cuda.synchronize()
-            sd = float((s_k - s_p).abs().max())
-            ed = float((e_k - e_p).abs().max())
-            c_s, c_e = cos_min(s_k, s_p), cos_min(e_k, e_p)
-            rel = sd / float(s_p.abs().max())
-            log(f"[trunk] {name}: stats cos={c_s:.6f} max|d|={sd:.3e} "
-                f"(rel {rel:.3e}); embed cos={c_e:.6f} max|d|={ed:.3e} "
-                f"(bars cos > 0.9999, max|d| < 5e-3)")
-            if not (torch.isfinite(s_k).all() and c_s > 0.9999
-                    and c_e > 0.9999 and ed < 5e-3 and rel < 5e-3):
-                raise AssertionError(f"trunk kernel disagrees ({name})")
-            if trunk_max is None:
-                trunk_max = sd
-        # ragged padded 8 s bucket: each row against its exact-length run
-        valids = [128000, 96000, 48000, 24000, 16000]
-        padded = np.zeros((len(valids), 128000), np.float32)
-        for i, n in enumerate(valids):
-            padded[i, :n] = rng.randn(n) * 0.1
-        ratios = np.asarray([n / 128000 for n in valids], np.float32)
-        embed = tk.make_campplus_masked_embed_fn(model, feat)
-        got = embed(torch.from_numpy(padded).to(dev), ratios)
-        for i, n in enumerate(valids):
-            exact = embed(torch.from_numpy(padded[i:i + 1, :n]).to(dev))
-            c = cos_min(exact, got[i:i + 1])
-            log(f"[trunk] ragged row {i} ({n} samples): cos vs exact-length "
-                f"= {c:.6f} (bar 0.999)")
-            if c <= 0.999:
-                raise AssertionError("padded row disagrees with exact length")
+        check_trunk("3 x 798 frames", model, packed, model.FCM_0(feat(w8)),
+                    None, tk)
+        for b, t, tv in ((4, 1598, [800, 612, 101, 1]),
+                         (2, 3198, [1600, 1199])):
+            f = model.FCM_0(torch.from_numpy(
+                rng.randn(b, t, 80).astype(np.float32)).to(dev))
+            check_trunk(f"{b} x {t} frames", model, packed, f, None, tk)
+            check_trunk(f"{b} x {t} frames, tvalids {tv}", model, packed, f,
+                        tv, tk)
+        check_ragged(embed, rng, 128000, [128000, 96000, 48000, 24000, 16000],
+                     dev)
+        check_ragged(embed, rng, 512000, [512000, 400000, 256000, 170000],
+                     dev)
 
-    # ---- 5. the main path: Predictor on the card --------------------------
+    # ---- 6. the main path: Predictor on the card --------------------------
     work = tempfile.mkdtemp(prefix="vpr_smoke_")
     try:
         model_path = os.path.join(work, "model.pt")
@@ -252,8 +303,14 @@ def main():
         wav = lambda n: os.path.join(ROOT, "dataset", f"{n}.wav")  # noqa: E731
         clips = [(rng.randn(int(rng.uniform(1.0, 8.0) * 16000)) * 0.1)
                  .astype(np.float32) for _ in range(64)]
+        long_clips = [(rng.randn(int(rng.uniform(9.0, 30.0) * 16000)) * 0.1)
+                      .astype(np.float32) for _ in range(8)]
+        long_clips[0] = (rng.randn(30 * 16000) * 0.1).astype(np.float32)
+        clip_16 = (rng.randn(15 * 16000) * 0.1).astype(np.float32)
+        clip_33 = (rng.randn(33 * 16000) * 0.1).astype(np.float32)
 
         fk.fbank_fused.launches = 0
+        fkm.fcm_fused.launches = 0
         tk.trunk_stats.launches = 0
         t0 = time.perf_counter()
         pred = Predictor(CONFIG, threshold=-1.0, audio_db_path=db,
@@ -263,65 +320,131 @@ def main():
         rec = [pred.recognition(wav(n)) for n in ("a_2", "b_2")]
         score = pred.contrast(wav("a_1"), wav("a_2"))
         embs = pred.predict_batch(clips)
+        long_embs = pred.predict_batch(long_clips)
+        emb_16 = pred.predict_batch([clip_16])[0]
+        kernel_counts = (fkm.fcm_fused.launches, tk.trunk_stats.launches)
+        emb_33 = pred.predict_batch([clip_33])
         torch.cuda.synchronize()
         main_s = time.perf_counter() - t0
         launches = {"fbank": fk.fbank_fused.launches,
+                    "fcm": fkm.fcm_fused.launches,
                     "campplus_trunk": tk.trunk_stats.launches}
         log(f"[main] Predictor(device='cuda') in {main_s:.2f} s: register "
             f"{ok_a} {ok_b}; users {sorted(set(pred.get_users()))}; "
             f"recognition {rec}; contrast(a_1, a_2) = {score:.4f}; "
-            f"predict_batch {embs.shape}; launches {launches}")
+            f"predict_batch {embs.shape} + {long_embs.shape}; predict 15 s "
+            f"{emb_16.shape}; 33 s {emb_33.shape}; launches {launches}")
         if not (ok_a and ok_b and embs.shape == (64, 192)
-                and np.isfinite(embs).all() and np.isfinite(score)
+                and long_embs.shape == (8, 192) and emb_16.shape == (192,)
+                and emb_33.shape == (1, 192)
+                and all(np.isfinite(e).all()
+                        for e in (embs, long_embs, emb_16, emb_33))
+                and np.isfinite(score)
                 and all(r[0] is not None for r in rec)):
             raise AssertionError("Predictor outputs are wrong")
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: {launches}")
-        # four outputs against the eager fp32 model on exact-length
-        # features from the plain fbank
+        if kernel_counts != (launches["fcm"], launches["campplus_trunk"]):
+            raise AssertionError("the 33 s clip did not take the plain branch")
+        # outputs against the eager fp32 model on exact-length features
+        # from the plain fbank
+        held = [(f"clip {i}", clips[i], embs[i]) for i in range(4)]
+        held += [("15 s clip (16 s bucket)", clip_16, emb_16),
+                 ("30 s clip (32 s bucket)", long_clips[0], long_embs[0])]
         with torch.no_grad():
-            for i in range(4):
-                x = torch.from_numpy(clips[i]).to(dev)[None]
+            for name, clip, emb in held:
+                x = torch.from_numpy(clip).to(dev)[None]
                 f = features.apply_cmn_and_mask(kaldi.fbank(x, n_mels=80))
                 ref_e = model(f)
-                c = cos_min(ref_e, torch.from_numpy(embs[i:i + 1]).to(dev))
-                log(f"[main] clip {i} ({clips[i].shape[0]} samples): cos vs "
-                    f"eager fp32 model = {c:.6f} (bar 0.999)")
+                c = cos_min(ref_e, torch.from_numpy(emb[None]).to(dev))
+                log(f"[main] {name} ({clip.shape[0]} samples): cos vs eager "
+                    f"fp32 model = {c:.6f} (bar 0.999)")
                 if c <= 0.999:
                     raise AssertionError("embedding disagrees with eager model")
+            x = torch.from_numpy(clip_33).to(dev)[None]
+            f = features.apply_cmn_and_mask(kaldi.fbank(x, n_mels=80))
+            c = cos_min(model(f), torch.from_numpy(emb_33).to(dev))
+            log(f"[main] 33 s clip, plain branch at the 64 s bucket: cos vs "
+                f"the eager model at exact length = {c:.6f} (no bar: the "
+                f"plain model's CAM context spans the padding, as in JAX)")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 6. times on the card -------------------------------------------
-    fb_plain = [cuda_ms(lambda: fk.fbank_fused_reference(waves, n_mels=80), 20)]
-    fb_kern = [cuda_ms(lambda: fk.fbank_fused(waves, n_mels=80), 20)
-               for _ in range(2)]
-    fb_plain.append(cuda_ms(lambda: fk.fbank_fused_reference(waves, n_mels=80), 20))
-    with torch.no_grad():
-        tr_plain = [cuda_ms(lambda: tk.trunk_stats_reference(packed, fcm_b256), 3, 1)]
-        tr_kern = [cuda_ms(lambda: tk.trunk_stats(packed, fcm_b256), 10)
-                   for _ in range(2)]
-        tr_plain.append(cuda_ms(
-            lambda: tk.trunk_stats_reference(packed, fcm_b256), 3, 1))
-        embed_ms = cuda_ms(lambda: embed(waves), 10)
+    # ---- 7. times on the card -------------------------------------------
     ms = lambda xs: sum(xs) / len(xs)  # noqa: E731
+
+    def turns(plain, kernel, iters, plain_iters=None):
+        """plain, kernel, kernel, plain: two CUDA-event means each."""
+        pi = plain_iters or iters
+        p = [cuda_ms(plain, pi, 1)]
+        k = [cuda_ms(kernel, iters) for _ in range(2)]
+        p.append(cuda_ms(plain, pi, 1))
+        return k, p
+
+    w16 = torch.from_numpy(
+        (rng.randn(32, 256000) * 0.1).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        fb_kern, fb_plain = turns(
+            lambda: fk.fbank_fused_reference(waves, n_mels=80),
+            lambda: fk.fbank_fused(waves, n_mels=80), 20)
+        tr_kern, tr_plain = turns(
+            lambda: tk.trunk_stats_reference(packed, fcm_b256),
+            lambda: tk.trunk_stats(packed, fcm_b256), 10, 3)
+        embed_ms = cuda_ms(lambda: embed(waves), 10)
+        feats_3 = feat(waves)
+        feats_16 = feat(w16)
+        fcm_times = {}
+        for name, fx in (("b256 x 3 s", feats_3), ("b32 x 16 s", feats_16)):
+            k, p = turns(lambda: fkm.fcm_reference(packed_fcm, fx),
+                         lambda: fkm.fcm_fused(packed_fcm, fx), 10, 3)
+            cud = [cuda_ms(lambda: model.FCM_0(fx), 3, 1) for _ in range(2)]
+            fcm_times[name] = (k, p, cud)
+        fcm16 = fkm.fcm_fused(packed_fcm, feats_16)
+        tr16_kern, tr16_plain = turns(
+            lambda: tk.trunk_stats_reference(packed, fcm16),
+            lambda: tk.trunk_stats(packed, fcm16), 5, 2)
+        embed16_ms = cuda_ms(lambda: embed(w16), 5)
+        stats16 = tk.trunk_stats(packed, fcm16)
+        stages16 = {
+            "featurize": cuda_ms(lambda: feat(w16), 10),
+            "fcm kernel": cuda_ms(lambda: fkm.fcm_fused(packed_fcm, feats_16), 10),
+            "trunk kernel": cuda_ms(lambda: tk.trunk_stats(packed, fcm16), 5),
+            "head": cuda_ms(lambda: model.DenseBN_0(stats16), 10),
+        }
     log(f"[times] {card}: fbank b256 x 3 s kernel {fb_kern} ms, plain "
         f"{fb_plain} ms")
     log(f"[times] {card}: trunk b256 x 298 frames kernel {tr_kern} ms, plain "
         f"{tr_plain} ms")
     log(f"[times] {card}: whole embed b256 x 3 s {embed_ms:.3f} ms/batch = "
         f"{256e3 / embed_ms:.1f} utt/s")
+    for name, (k, p, cud) in fcm_times.items():
+        log(f"[times] {card}: FCM {name} kernel {k} ms, plain version "
+            f"(fcm_reference) {p} ms, model.FCM_0 (cuDNN, fp32) {cud} ms")
+    log(f"[times] {card}: trunk b32 x 1598 frames kernel {tr16_kern} ms, "
+        f"plain {tr16_plain} ms")
+    log(f"[times] {card}: whole embed b32 x 16 s {embed16_ms:.3f} ms/batch = "
+        f"{32e3 / embed16_ms:.1f} utt/s; stages {stages16} ms")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
+    k16, p16, cud16 = fcm_times["b32 x 16 s"]
+    k3, p3, cud3 = fcm_times["b256 x 3 s"]
     print(json.dumps({"kernels": [
         {"name": "fbank", "route": "cuda", "source": FBANK_SRC,
          "replaces": FBANK_TPU, "launches": launches["fbank"],
          "max_abs_err": fb_max, "ms": ms(fb_kern), "plain_ms": ms(fb_plain)},
+        {"name": "fcm", "route": "cuda", "source": FCM_SRC,
+         "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
+         "launches": launches["fcm"], "max_abs_err": fcm_max,
+         "ms": ms(k16), "plain_ms": ms(p16), "cudnn_ms": ms(cud16),
+         "shape": "b32 x 16 s", "ms_b256x3s": ms(k3),
+         "plain_ms_b256x3s": ms(p3), "cudnn_ms_b256x3s": ms(cud3)},
         {"name": "campplus_trunk", "route": "cuda", "source": TRUNK_SRC,
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
-         "ms": ms(tr_kern), "plain_ms": ms(tr_plain)},
-    ], "embed_utt_per_s": 256e3 / embed_ms, "card": card}), flush=True)
+         "ms": ms(tr_kern), "plain_ms": ms(tr_plain), "shape": "b256 x 3 s",
+         "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain)},
+    ], "embed_utt_per_s": 256e3 / embed_ms,
+        "embed_16s_utt_per_s": 32e3 / embed16_ms, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

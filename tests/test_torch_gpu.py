@@ -7,13 +7,15 @@ host has none); run it there with
 
 Bars: fbank max |d| < 2e-2 and p99 < 1e-3 (``tests/test_pallas_fbank.py``);
 trunk cos > 0.9999 and max |d| / scale < 5e-3
-(``tests/test_pallas_campplus.py:47-48``).
+(``tests/test_pallas_campplus.py:47-48``); FCM cos > 0.9999 and
+max |d| / scale < 5e-2 (``tests/test_pallas_fcm.py:55-56``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from voiceprintrecognition_paddlepaddle_torch.models import fcm_kernel as fkm
 from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
 from voiceprintrecognition_paddlepaddle_torch.models.campplus import CAMPPlus
 from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
@@ -59,6 +61,7 @@ def model(cuda):
 
 
 @pytest.mark.parametrize("t_raw,tvalids", [
+    (3198, None), (3198, [1600, 1101, 99]), (1598, None), (1598, [800, 433, 1]),
     (798, None), (798, [399, 250, 37]), (298, None), (148, [74, 1, 60]),
     (98, None)])
 def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids):
@@ -78,7 +81,26 @@ def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids):
     assert float((got - ref).abs().max() / ref.abs().max()) < 5e-3
 
 
-def test_trunk_rejects_buckets_beyond_8s(cuda, model):
+def test_trunk_rejects_buckets_beyond_32s(cuda, model):
     packed = tk.pack_trunk(model)
-    with pytest.raises(NotImplementedError, match="FCM kernel not yet ported"):
-        tk.trunk_stats(packed, torch.zeros(1, 802, 320, device=cuda))
+    with pytest.raises(ValueError, match="at most 3200 frames"):
+        tk.trunk_stats(packed, torch.zeros(1, 3202, 320, device=cuda))
+
+
+@pytest.mark.parametrize("b,t", [(8, 298), (8, 297), (4, 1598), (2, 3198),
+                                 (3, 17)])
+def test_fcm_kernel_matches_plain_version(cuda, model, b, t):
+    packed = fkm.pack_fcm(model)
+    feats = torch.from_numpy(np.random.RandomState(t).randn(
+        b, t, 80).astype(np.float32)).to(cuda)
+    before = fkm.fcm_fused.launches
+    got = fkm.fcm_fused(packed, feats)
+    torch.cuda.synchronize()
+    assert fkm.fcm_fused.launches == before + 1
+    assert got.shape == (b, t, 320) and got.dtype == torch.bfloat16
+    ref = fkm.fcm_reference(packed, feats).double().cpu()
+    got = got.double().cpu()
+    assert torch.isfinite(got).all()
+    cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+    assert cos > 0.9999
+    assert float((got - ref).abs().max()) < 5e-2 * max(1.0, float(ref.abs().max()))

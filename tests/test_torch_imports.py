@@ -21,8 +21,8 @@ from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "voiceprintrecognition_paddlepaddle_torch")
-MODULES = ["predict", "models.trunk_kernel", "models.convert",
-           "ops.fbank_kernel", "ops.features", "_build"]
+MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
+           "models.convert", "ops.fbank_kernel", "ops.features", "_build"]
 
 
 def test_importing_the_port_leaves_jax_out():

@@ -2,7 +2,8 @@
 demo wavs against the JAX exact-length embedding (JAX features and
 ``CAMPPlus.apply`` on the unpadded clip), plus the Predictor's database
 surface (register / recognition / contrast / remove_user, the pickle
-index, the path-traversal guard) and its limits.
+index, the path-traversal guard), the 16 s bucket through the FCM
+kernel's module, and the plain branch past the 32 s bucket.
 
 The port pads each clip to its bucket and takes the masked path, whose
 CAM context is length-aware, so it is compared with the exact-length
@@ -21,6 +22,8 @@ import torch
 import yaml
 
 from test_torch_helpers import FULL, cos_min, synth_campplus
+from voiceprintrecognition_paddlepaddle_torch import predict as tpredict
+from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
 from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \
     AudioSegment as JaxAudioSegment
@@ -40,8 +43,13 @@ def _configs():
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    jm, v, tm = synth_campplus(FULL, seed=3)
+def models():
+    return synth_campplus(FULL, seed=3)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory, models):
+    jm, v, tm = models
     root = tmp_path_factory.mktemp("torch_predictor")
     model_path = str(root / "model.pt")
     torch.save(tm.state_dict(), model_path)
@@ -58,6 +66,21 @@ def world(tmp_path_factory):
         return np.asarray(japply(feats))[0]
 
     return model_path, jax_exact, root
+
+
+@pytest.fixture(scope="module")
+def jax_padded(models):
+    """The JAX Predictor's plain branch (``_embed_impl``) on a padded
+    batch: masked CMN, then ``CAMPPlus.apply`` with ``lengths``."""
+    jm, v, _ = models
+    japply = jax.jit(lambda x, r: jm.apply(v, x, train=False, lengths=r))
+
+    def embed(waves, ratios):
+        feats = compute_feature(waves, "Fbank", input_lens_ratio=ratios,
+                                sr=16000, n_mels=80)
+        return np.asarray(japply(feats, ratios))
+
+    return embed
 
 
 def _predictor(world, db=None, **kw):
@@ -126,10 +149,48 @@ def test_register_rejects_path_traversal(world, name):
     assert os.listdir(db) == []
 
 
-def test_bucket_above_8s_raises(world):
+def test_16s_bucket_takes_the_fcm_kernel_and_matches_jax(world, monkeypatch):
+    """A 12 s clip pads to the 16 s bucket (1598 frames >= FCM_MIN_T), so
+    the embed goes through ``fcm_fused`` (its plain version on the CPU)
+    and the trunk at 799 rows; it holds against JAX's exact-length
+    embedding."""
+    _, jax_exact, _ = world
+    calls = []
+    real = tk.fcm_fused
+    monkeypatch.setattr(tk, "fcm_fused",
+                        lambda p, f: calls.append(f.shape) or real(p, f))
     pred = _predictor(world)
-    with pytest.raises(NotImplementedError, match="FCM kernel not yet ported"):
-        pred.predict_batch([np.zeros(128001, np.float32)])
+    clip = (np.random.RandomState(6).randn(192000) * 0.05).astype(np.float32)
+    got = pred.predict_batch([clip])
+    assert calls == [(1, 1598, 80)]
+    assert got.shape == (1, 192) and np.isfinite(got).all()
+    assert cos_min(jax_exact(clip)[None], got) > 0.999
+
+
+def test_bucket_past_32s_runs_the_plain_model(world, jax_padded, monkeypatch):
+    """Past ``MAX_KERNEL_BUCKET_SAMPLES`` a batch runs the plain
+    ``CAMPPlus.forward`` with length ratios, as the JAX Predictor's
+    ``_embed_impl`` does; the choice depends on the bucket length alone.
+    The limit is lowered here so that the branch runs at a 4 s bucket."""
+    monkeypatch.setattr(tpredict, "MAX_KERNEL_BUCKET_SAMPLES", 32000)
+    pred = _predictor(world)
+    kernel_calls = []
+    real = pred._embed
+    pred._embed = lambda *a: kernel_calls.append(a) or real(*a)
+    rng = np.random.RandomState(7)
+    clips = [(rng.randn(n) * 0.05).astype(np.float32) for n in (48000, 30000)]
+    got = pred.predict_batch(clips)
+    assert kernel_calls == []
+    waves = np.zeros((2, 64000), np.float32)
+    for i, c in enumerate(clips):
+        waves[i, :len(c)] = c
+    ratios = np.asarray([len(c) / 64000 for c in clips], np.float32)
+    ref = jax_padded(waves, ratios)
+    assert got.shape == (2, 192)
+    assert cos_min(ref, got) > 0.999
+    # a 2 s bucket stays on the kernel path
+    pred.predict_batch([clips[1][:20000]])
+    assert len(kernel_calls) == 1
 
 
 def test_configs_from_yaml_path(world, tmp_path):

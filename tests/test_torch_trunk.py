@@ -1,7 +1,8 @@
 """PyTorch port, whole-trunk module: ``trunk_stats_reference`` (the plain
 version of ``csrc/campplus_trunk.cu``) against the JAX Pallas trunk kernel
 run in interpret mode, at full width on a 1 s clip, exact-length and with
-per-utterance ``tvalids``; the host-side geometry against the JAX
+per-utterance ``tvalids``, and on a 24 s input (1199 trunk rows, 12 CAM
+segments: the kernel's long mode); the host-side geometry against the JAX
 package's; and padding invariance of the plain version. The CUDA kernel
 itself is held against the plain version in ``test_torch_gpu.py``.
 
@@ -63,6 +64,18 @@ def test_reference_matches_pallas_with_tvalids(setup):
     _assert_stats_bar(ref, got)
 
 
+def test_reference_matches_pallas_long_input(setup):
+    """12 CAM segments, past the shared-memory rows of the kernel."""
+    v, _, packed = setup
+    fcm = _fcm_out(v, 4, 1, 2398)
+    t_valid, t16 = tk.trunk_geometry(2398)
+    assert t_valid == 1199 and t16 > tk.SMEM_MAX_T16
+    ref = np.asarray(pc.trunk_stats_pallas(v, jnp.asarray(fcm),
+                                           interpret=True, u=1))
+    got = tk.trunk_stats_reference(packed, torch.from_numpy(fcm)).numpy()
+    _assert_stats_bar(ref, got)
+
+
 def test_padded_rows_match_exact_length(setup):
     """Zero rows past the valid count make a padded clip's stats equal
     its exact-length stats; two segments exercise the CAM segment means."""
@@ -89,7 +102,7 @@ def test_plan_matches_jax():
         assert ours[key] == theirs[key], key
 
 
-@pytest.mark.parametrize("t_raw", [98, 148, 298, 602, 798])
+@pytest.mark.parametrize("t_raw", [98, 148, 298, 602, 798, 1598, 3198])
 def test_geometry_and_tvalids_match_jax(t_raw):
     t_valid, t16 = tk.trunk_geometry(t_raw)
     assert t_valid == pc.trunk_geometry(t_raw)[0]

@@ -4,7 +4,7 @@
 // `_kernel` (unrolled, pallas_call in `_trunk_call`) and `_kernel_looped`
 // (pallas_call in `_trunk_call_looped`). Both compute one function; the
 // split between them existed only for the TPU compiler's sake, so one
-// kernel serves every length up to the 8 s bucket (t_valid <= 400).
+// kernel serves every length up to the 32 s bucket (t_valid <= 1600).
 //
 // What it computes, per utterance (FCM output x: (T_raw, 320) bf16):
 //   stem   k5 stride-2 pad-2 conv 320->128, BN-ReLU, mask
@@ -30,8 +30,16 @@
 // the stem, the 52 layers, the transits and the pooling, so there is no
 // reduction across blocks. The growing concat (t16 x 1024 bf16) lives in a
 // global workspace of two ping-pong buffers (a transit reads one and
-// writes the other); x2 (t16 x 128 bf16) and the local conv's output stay
-// in shared memory. Products use nvcuda::wmma bf16 16x16x16 fragments with
+// writes the other). Up to the 8 s bucket (t16 <= 400), x2 (t16 x 128
+// bf16) and the local conv's output stay in shared memory, and a layer
+// runs x2, the local conv, the segment sums, the gate, then the gated
+// append. Past that (the long mode, to t16 = 1600: 462 KB of x2 alone at
+// the shared layout, against 227 KB a block), x2 lives in a per-utterance
+// global scratch (t16 x 128 bf16, 410 KB at 32 s, which stays in L2) and a
+// layer runs x2 over all rows with the segment sums taken in its
+// epilogue, then the gate, then the local conv per 16-row tile with the
+// gate, mask and append in its epilogue, so the local conv's output is
+// never stored. Products use nvcuda::wmma bf16 16x16x16 fragments with
 // fp32 accumulation: a 64-row x 128-column output chunk at a time, with A
 // (after its BN-ReLU transform) and B staged in shared memory in K-slices
 // of 64. The dilated conv reads x2 at shifted rows from shared memory,
@@ -55,6 +63,7 @@ struct TrunkParams {
   const int* tvalid;      // (B,) valid trunk frames, in [1, t_valid]
   float* out;             // (B, 1024) mean || biased std
   bf16* ws;               // (2, B, t16, 1024) concat ping-pong workspace
+  bf16* x2s;              // long mode: (B, t16 + 4, 128) x2 scratch, else null
   const bf16* w_stem;     // (5 * 320, 128), tap-major rows
   const float* stem_aff;  // (3, 128): conv bias, BN a, BN b
   const bf16* w_lin1;     // (sum cin, 128)
@@ -82,7 +91,9 @@ constexpr int kYLd = 36;
 constexpr int kGuard = 2;                      // max dilation
 constexpr int kStemIn = 320, kInit = 128, kBn = 128, kGrowth = 32;
 constexpr int kHid = 64, kWide = 1024, kFinal = 512, kSeg = 100;
-constexpr int kMaxSegs = 4, kLayers = 52, kMaxT = 400;
+constexpr int kLayers = 52;
+constexpr int kMaxT = 400;        // shared-memory x2 up to this t16
+constexpr int kMaxTLong = 1600;   // the 32 s bucket (3198 frames)
 __constant__ int kBlockLayers[3] = {12, 24, 16};
 __constant__ int kBlockDil[3] = {1, 2, 2};
 
@@ -96,11 +107,12 @@ struct Smem {
   bf16* sA;
   bf16* sB;
   float* sC;
-  float* sY;     // aliases sA/sB/sC (used in another phase)
-  float* segsum; // (kMaxSegs, 128)
-  float* ctx;    // (kMaxSegs, 128), bf16-rounded values
-  float* c1;     // (kMaxSegs, 64), bf16-rounded values
-  float* gate;   // (kMaxSegs, 32), bf16-rounded values
+  float* sY;     // aliases sA/sB/sC (used in another phase); in the long
+                 // mode, per-warp (16, kYLd) staging of the local conv
+  float* segsum; // (segs, 128), segs = ceil(t_valid / 100)
+  float* ctx;    // (segs, 128), bf16-rounded values
+  float* c1;     // (segs, 64), bf16-rounded values
+  float* gate;   // (segs, 32), bf16-rounded values
 };
 
 __host__ __device__ inline size_t x2_bytes(int t16) {
@@ -110,8 +122,15 @@ __host__ __device__ inline size_t union_bytes(int t16) {
   size_t y = sizeof(float) * (size_t)t16 * kYLd;
   return align128(y > kStageBytes ? y : kStageBytes);
 }
-__host__ __device__ inline size_t small_bytes() {
-  return align128(sizeof(float) * kMaxSegs * (128 + 128 + kHid + kGrowth));
+__host__ __device__ inline int seg_cap(int t_valid) { return (t_valid + kSeg - 1) / kSeg; }
+__host__ __device__ inline size_t small_bytes(int t_valid) {
+  return align128(sizeof(float) * seg_cap(t_valid) * (128 + 128 + kHid + kGrowth));
+}
+// shared memory of a block: the short mode holds x2; the long mode only the
+// GEMM stage (which the per-warp local-conv staging aliases)
+__host__ __device__ inline size_t smem_bytes(bool long_mode, int t16, int t_valid) {
+  return long_mode ? align128(kStageBytes) + small_bytes(t_valid)
+                   : x2_bytes(t16) + union_bytes(t16) + small_bytes(t_valid);
 }
 
 __device__ inline float bfr(float v) {  // round to bf16 and back
@@ -209,36 +228,46 @@ __device__ void gemm_chunk(const LoadA& load_a, int m0, int K,
   __syncthreads();
 }
 
+// kLong: x2 in the global scratch p.x2s (row stride 128) instead of shared
+// memory (row stride kX2Ld); see the header for the order of a layer's
+// phases in each mode.
+template <bool kLong>
 __global__ void __launch_bounds__(kThreads)
 campplus_trunk_kernel(TrunkParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int kX2L = kLong ? kBn : kX2Ld;     // x2 row stride
   const int t16 = p.t16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x;
+  const int segs = seg_cap(p.t_valid);
   Smem s;
   {
     unsigned char* q = smem_raw;
-    s.x2 = reinterpret_cast<bf16*>(q) + kGuard * kX2Ld;
-    q += x2_bytes(t16);
+    if (kLong) {
+      s.x2 = p.x2s + ((size_t)b * (t16 + 2 * kGuard) + kGuard) * kX2L;
+    } else {
+      s.x2 = reinterpret_cast<bf16*>(q) + kGuard * kX2L;
+      q += x2_bytes(t16);
+    }
     s.sA = reinterpret_cast<bf16*>(q);
     s.sB = s.sA + kMC * kALd;
     s.sC = reinterpret_cast<float*>(s.sB + kKC * kBLd);
     s.sY = reinterpret_cast<float*>(q);
-    q += union_bytes(t16);
+    q += kLong ? align128(kStageBytes) : union_bytes(t16);
     s.segsum = reinterpret_cast<float*>(q);
-    s.ctx = s.segsum + kMaxSegs * 128;
-    s.c1 = s.ctx + kMaxSegs * 128;
-    s.gate = s.c1 + kMaxSegs * kHid;
+    s.ctx = s.segsum + segs * 128;
+    s.c1 = s.ctx + segs * 128;
+    s.gate = s.c1 + segs * kHid;
   }
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int b = blockIdx.x;
   const int tv = min(max(p.tvalid[b], 1), p.t_valid);
   const size_t buf_stride = (size_t)p.B * t16 * kWide;
   bf16* bufs[2] = {p.ws + (size_t)b * t16 * kWide,
                    p.ws + buf_stride + (size_t)b * t16 * kWide};
 
   // zero guard rows of x2 (never written afterwards)
-  for (int i = tid; i < kGuard * kX2Ld; i += kThreads) {
-    s.x2[i - kGuard * kX2Ld] = __float2bfloat16_rn(0.f);
-    s.x2[(size_t)t16 * kX2Ld + i] = __float2bfloat16_rn(0.f);
+  for (int i = tid; i < kGuard * kX2L; i += kThreads) {
+    s.x2[i - kGuard * kX2L] = __float2bfloat16_rn(0.f);
+    s.x2[(size_t)t16 * kX2L + i] = __float2bfloat16_rn(0.f);
   }
 
   // ---- stem: k5 s2 conv 320 -> 128, BN-ReLU, mask -> concat[:, :128] ----
@@ -270,7 +299,10 @@ campplus_trunk_kernel(TrunkParams p) {
       const float* la = p.lin1_aff + (size_t)layer * 3 * kBn;
       const float* cb = p.cam_bias + (size_t)layer * 128;
 
-      // 1x1 bottleneck cin -> 128 over the wide BN-ReLU, then BN-ReLU, mask
+      // 1x1 bottleneck cin -> 128 over the wide BN-ReLU, then BN-ReLU, mask.
+      // The long mode also sums each 100-frame segment of the bf16 x2 here.
+      if (kLong)
+        for (int i = tid; i < segs * kBn; i += kThreads) s.segsum[i] = 0.f;
       const WideLoader ld{X, wab, wab + kWide, t16};
       for (int m0 = 0; m0 < t16; m0 += kMC) {
         gemm_chunk(ld, m0, cin, p.w_lin1 + lin1_off * kBn, kBn, 0, s);
@@ -279,27 +311,46 @@ campplus_trunk_kernel(TrunkParams p) {
           if (r >= t16) continue;
           float v = s.sC[(i / kBn) * kCLd + c] + la[c];
           v = fmaxf(v * la[kBn + c] + la[2 * kBn + c], 0.f);
-          s.x2[(size_t)r * kX2Ld + c] = __float2bfloat16_rn(r < tv ? v : 0.f);
+          const bf16 vb = __float2bfloat16_rn(r < tv ? v : 0.f);
+          s.x2[(size_t)r * kX2L + c] = vb;
+          if (kLong) s.sC[(i / kBn) * kCLd + c] = __bfloat162float(vb);
+        }
+        if (kLong) {
+          __syncthreads();
+          if (tid < kBn) {
+            const int r1 = min(m0 + kMC, tv);
+            int sg = m0 / kSeg;
+            float acc = 0.f;
+            for (int r = m0; r < r1; ++r) {
+              if (r / kSeg != sg) {
+                s.segsum[sg * kBn + tid] += acc;
+                acc = 0.f;
+                sg = r / kSeg;
+              }
+              acc += s.sC[(r - m0) * kCLd + tid];
+            }
+            if (r1 > m0) s.segsum[sg * kBn + tid] += acc;
+          }
         }
         __syncthreads();
       }
       lin1_off += cin;
+      const bf16* wl = p.w_local + (size_t)layer * 3 * kBn * kGrowth;
 
-      // local k3 dilated conv 128 -> 32 over shifted x2 rows -> sY (fp32)
-      {
-        const bf16* wl = p.w_local + (size_t)layer * 3 * kBn * kGrowth;
+      if (!kLong) {
+        // local k3 dilated conv 128 -> 32 over shifted x2 rows -> sY (fp32)
         const int mtiles = t16 / 16;
         for (int tile = warp; tile < mtiles * 2; tile += kWarps) {
           const int mt = tile >> 1, nt = tile & 1;
           wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
           wmma::fill_fragment(acc, 0.f);
           for (int tap = 0; tap < 3; ++tap) {
-            const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2Ld;
+            const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2L;
 #pragma unroll
             for (int kk = 0; kk < kBn; kk += 16) {
               wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
               wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfg;
-              wmma::load_matrix_sync(af, arow + kk, kX2Ld);
+              wmma::load_matrix_sync(af, arow + kk, kX2L);
               wmma::load_matrix_sync(bfg, wl + (size_t)(tap * kBn + kk) * kGrowth + nt * 16,
                                      kGrowth);
               wmma::mma_sync(acc, af, bfg, acc);
@@ -308,19 +359,19 @@ campplus_trunk_kernel(TrunkParams p) {
           wmma::store_matrix_sync(s.sY + mt * 16 * kYLd + nt * 16, acc, kYLd,
                                   wmma::mem_row_major);
         }
-      }
 
-      // CAM context: per-segment sums of x2 over the valid frames
-      if (tid < kBn) {
-        for (int sg = 0; sg < nseg; ++sg) {
-          const int r1 = min((sg + 1) * kSeg, tv);
-          float acc = 0.f;
-          for (int r = sg * kSeg; r < r1; ++r)
-            acc += __bfloat162float(s.x2[(size_t)r * kX2Ld + tid]);
-          s.segsum[sg * kBn + tid] = acc;
+        // CAM context: per-segment sums of x2 over the valid frames
+        if (tid < kBn) {
+          for (int sg = 0; sg < nseg; ++sg) {
+            const int r1 = min((sg + 1) * kSeg, tv);
+            float acc = 0.f;
+            for (int r = sg * kSeg; r < r1; ++r)
+              acc += __bfloat162float(s.x2[(size_t)r * kX2L + tid]);
+            s.segsum[sg * kBn + tid] = acc;
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
       if (tid < kBn) {
         float tot = 0.f;
         for (int sg = 0; sg < nseg; ++sg) tot += s.segsum[sg * kBn + tid];
@@ -331,39 +382,71 @@ campplus_trunk_kernel(TrunkParams p) {
         }
       }
       __syncthreads();
-      {  // 128 -> 64, ReLU
-        const int sg = tid / kHid, j = tid % kHid;
-        if (sg < nseg) {
-          const bf16* w1 = p.w_cam1 + (size_t)layer * kBn * kHid;
-          float acc = 0.f;
-          for (int c = 0; c < kBn; ++c)
-            acc = fmaf(s.ctx[sg * kBn + c], __bfloat162float(w1[c * kHid + j]), acc);
-          s.c1[sg * kHid + j] = bfr(fmaxf(acc + cb[2 * kGrowth + j], 0.f));
-        }
+      // 128 -> 64, ReLU
+      for (int i = tid; i < nseg * kHid; i += kThreads) {
+        const int sg = i / kHid, j = i % kHid;
+        const bf16* w1 = p.w_cam1 + (size_t)layer * kBn * kHid;
+        float acc = 0.f;
+        for (int c = 0; c < kBn; ++c)
+          acc = fmaf(s.ctx[sg * kBn + c], __bfloat162float(w1[c * kHid + j]), acc);
+        s.c1[sg * kHid + j] = bfr(fmaxf(acc + cb[2 * kGrowth + j], 0.f));
       }
       __syncthreads();
-      {  // 64 -> 32, sigmoid
-        const int sg = tid / kGrowth, j = tid % kGrowth;
-        if (sg < nseg) {
-          const bf16* w2 = p.w_cam2 + (size_t)layer * kHid * kGrowth;
-          float acc = 0.f;
-          for (int c = 0; c < kHid; ++c)
-            acc = fmaf(s.c1[sg * kHid + c], __bfloat162float(w2[c * kGrowth + j]), acc);
-          acc += cb[kGrowth + j];
-          s.gate[sg * kGrowth + j] = bfr(1.f / (1.f + expf(-acc)));
-        }
+      // 64 -> 32, sigmoid
+      for (int i = tid; i < nseg * kGrowth; i += kThreads) {
+        const int sg = i / kGrowth, j = i % kGrowth;
+        const bf16* w2 = p.w_cam2 + (size_t)layer * kHid * kGrowth;
+        float acc = 0.f;
+        for (int c = 0; c < kHid; ++c)
+          acc = fmaf(s.c1[sg * kHid + c], __bfloat162float(w2[c * kGrowth + j]), acc);
+        acc += cb[kGrowth + j];
+        s.gate[sg * kGrowth + j] = bfr(1.f / (1.f + expf(-acc)));
       }
       __syncthreads();
 
-      // gate the local conv, mask, append 32 channels to the concat
-      {
-        const int c0 = c_in + li * kGrowth;
+      const int c0 = c_in + li * kGrowth;
+      if (!kLong) {
+        // gate the local conv, mask, append 32 channels to the concat
         for (int i = tid; i < t16 * kGrowth; i += kThreads) {
           const int r = i / kGrowth, j = i % kGrowth;
           float v = 0.f;
           if (r < tv)
             v = (s.sY[r * kYLd + j] + cb[j]) * s.gate[(r / kSeg) * kGrowth + j];
           X[(size_t)r * kWide + c0 + j] = __float2bfloat16_rn(v);
+        }
+      } else {
+        // local k3 dilated conv 128 -> 32 per 16-row tile from the x2
+        // scratch, gated, masked and appended to the concat in its epilogue
+        float* st = s.sY + warp * 16 * kYLd;
+        for (int mt = warp; mt < t16 / 16; mt += kWarps) {
+          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+          wmma::fill_fragment(acc[0], 0.f);
+          wmma::fill_fragment(acc[1], 0.f);
+          for (int tap = 0; tap < 3; ++tap) {
+            const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2L;
+#pragma unroll
+            for (int kk = 0; kk < kBn; kk += 16) {
+              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
+              wmma::load_matrix_sync(af, arow + kk, kX2L);
+              const bf16* wrow = wl + (size_t)(tap * kBn + kk) * kGrowth;
+              wmma::load_matrix_sync(b0, wrow, kGrowth);
+              wmma::load_matrix_sync(b1, wrow + 16, kGrowth);
+              wmma::mma_sync(acc[0], af, b0, acc[0]);
+              wmma::mma_sync(acc[1], af, b1, acc[1]);
+            }
+          }
+          wmma::store_matrix_sync(st, acc[0], kYLd, wmma::mem_row_major);
+          wmma::store_matrix_sync(st + 16, acc[1], kYLd, wmma::mem_row_major);
+          __syncwarp();
+          for (int i = lane; i < 16 * kGrowth; i += 32) {
+            const int r = mt * 16 + i / kGrowth, j = i % kGrowth;
+            float v = 0.f;
+            if (r < tv)
+              v = (st[(i / kGrowth) * kYLd + j] + cb[j]) * s.gate[(r / kSeg) * kGrowth + j];
+            X[(size_t)r * kWide + c0 + j] = __float2bfloat16_rn(v);
+          }
+          __syncwarp();
         }
       }
       __syncthreads();
@@ -412,16 +495,23 @@ campplus_trunk_kernel(TrunkParams p) {
   }
 }
 
+template <bool kLong>
+cudaError_t launch(const TrunkParams& p, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kLong, p.t16, p.t_valid);
+  cudaError_t err = cudaFuncSetAttribute(
+      campplus_trunk_kernel<kLong>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  campplus_trunk_kernel<kLong><<<p.B, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vpr_campplus_trunk(TrunkParams p, void* stream) {
-  if (p.B <= 0 || p.t_valid <= 0 || p.t_valid > kMaxT || p.t16 % 16 != 0 ||
-      p.t16 < p.t_valid || p.t16 > kMaxT)
+  if (p.B <= 0 || p.t_valid <= 0 || p.t_valid > kMaxTLong || p.t16 % 16 != 0 ||
+      p.t16 < p.t_valid || p.t16 > kMaxTLong)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = x2_bytes(p.t16) + union_bytes(p.t16) + small_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      campplus_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  campplus_trunk_kernel<<<p.B, kThreads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  if (p.t16 <= kMaxT) return (int)launch<false>(p, (cudaStream_t)stream);
+  if (p.x2s == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch<true>(p, (cudaStream_t)stream);
 }

@@ -13,10 +13,17 @@ unbiased std over each utterance's valid frames.
   two agree tightly on the card.
 - ``trunk_stats`` is the wrapper: the CUDA kernel on a CUDA tensor (with
   a launch counter), the plain version on a CPU tensor.
-- ``campplus_embed_fast`` runs FCM (plain convs, as the JAX package does
-  below 1000 frames) -> trunk -> DenseBN head, and
+- ``campplus_embed_fast`` runs FCM -> trunk -> DenseBN head. The FCM
+  is dispatched as the JAX package's ``_fcm_forward``: the FCM kernel
+  (``fcm_kernel.fcm_fused``) for buckets of ``FCM_MIN_T`` (1000) frames
+  and more, the model's plain convs below that.
   ``make_campplus_masked_embed_fn`` wraps featurize + embed for padded
   batches.
+
+The trunk kernel serves up to ``MAX_T_RAW`` frames (the 32 s bucket,
+3198 frames; ``t_valid <= 1600``). Past ``SMEM_MAX_T16`` trunk rows its
+bottleneck activations move from shared memory to a global scratch that
+the wrapper allocates.
 
 Valid frames: the stem keeps ``t_valid = (T_raw - 1) // 2 + 1`` frames; a
 padded utterance with length ratio ``r`` has ``ceil(r * t_valid)`` of
@@ -32,16 +39,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .fcm_kernel import FCM_MIN_T, fcm_fused, fcm_supported, pack_fcm
 from .layers import bn_affine
 
 __all__ = ["trunk_plan", "pack_trunk", "trunk_geometry", "tvalids_from_ratios",
            "trunk_stats_reference", "trunk_stats", "campplus_embed_fast",
-           "make_campplus_masked_embed_fn", "MAX_T_RAW"]
+           "make_campplus_masked_embed_fn", "MAX_T_RAW", "SMEM_MAX_T16"]
 
 SEG_LEN = 100           # CAM segment pooling window
 FCM_DIM = 320           # 32 channels x 80/8 frequencies
 WIDE = 1024             # widest concat (992) and transit input
-MAX_T_RAW = 800         # 8 s bucket (798 frames); longer needs the FCM kernel
+MAX_T_RAW = 3200        # 32 s bucket (3198 frames): t_valid <= 1600
+SMEM_MAX_T16 = 400      # x2 in shared memory up to here (csrc kMaxT)
 _BF16 = torch.bfloat16
 
 
@@ -249,7 +258,7 @@ def trunk_stats_reference(packed, fcm_out, tvalids=None):
 class _TrunkParams(ctypes.Structure):
     """Mirror of ``TrunkParams`` in ``csrc/campplus_trunk.cu``."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "tvalid", "out", "ws", "w_stem", "stem_aff", "w_lin1",
+        "x", "tvalid", "out", "ws", "x2s", "w_stem", "stem_aff", "w_lin1",
         "lin1_aff", "wide_ab", "w_local", "w_cam1", "w_cam2", "cam_bias",
         "w_t0", "w_t1", "w_t2", "tbias", "out_aff")] + [
         (name, ctypes.c_int) for name in ("B", "T_raw", "t_valid", "t16")]
@@ -278,20 +287,25 @@ def trunk_stats(packed, fcm_out, tvalids=None):
         raise ValueError(f"unsupported device {fcm_out.device}")
     b, t_raw, _ = fcm_out.shape
     if t_raw > MAX_T_RAW:
-        raise NotImplementedError(
-            f"FCM kernel not yet ported: the trunk kernel serves at most "
-            f"{MAX_T_RAW} frames (8 s), got {t_raw}; see ROADMAP.md")
+        raise ValueError(
+            f"the trunk kernel serves at most {MAX_T_RAW} frames (the 32 s "
+            f"bucket), got {t_raw}; longer buckets run the plain model "
+            f"(predict.py)")
     t_valid, t16 = trunk_geometry(t_raw)
     dev = fcm_out.device
     x = fcm_out.to(_BF16).contiguous()
     tv = _tvalid_tensor(tvalids, b, t_valid, dev)
     out = torch.empty((b, 2 * 512), dtype=torch.float32, device=dev)
     ws = torch.empty((2, b, t16, WIDE), dtype=_BF16, device=dev)
+    # x2 scratch with two zero guard rows at each end (the kernel zeroes them)
+    x2s = (torch.empty((b, t16 + 4, 128), dtype=_BF16, device=dev)
+           if t16 > SMEM_MAX_T16 else None)
     for k, v in packed.items():
         if v.device != dev or not v.is_contiguous():
             raise ValueError(f"packed[{k!r}] must be contiguous on {dev}")
     p = _TrunkParams(
         x.data_ptr(), tv.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        None if x2s is None else x2s.data_ptr(),
         *(packed[k].data_ptr() for k in (
             "w_stem", "stem_aff", "w_lin1", "lin1_aff", "wide_ab", "w_local",
             "w_cam1", "w_cam2", "cam_bias", "w_t0", "w_t1", "w_t2", "tbias",
@@ -308,28 +322,36 @@ trunk_stats.launches = 0
 
 
 @torch.no_grad()
-def campplus_embed_fast(model, packed, feats, tvalids=None):
-    """Features ``(B, T, 80)`` -> embeddings ``(B, embd_dim)``: FCM (plain
-    convs in the model's dtype), the trunk through ``trunk_stats``, and the
-    DenseBN head in the model's dtype."""
+def campplus_embed_fast(model, packed, packed_fcm, feats, tvalids=None):
+    """Features ``(B, T, 80)`` -> embeddings ``(B, embd_dim)``: the FCM
+    through ``fcm_fused`` for ``T >= FCM_MIN_T`` (``packed_fcm`` from
+    ``pack_fcm``, ``packed`` from ``pack_trunk``) and the model's plain
+    FCM below that (JAX
+    ``pallas_campplus.py:91-112``), the trunk through ``trunk_stats``, and
+    the DenseBN head with its input in the model's dtype."""
     dtype = model.DenseBN_0.Dense_0.weight.dtype
-    fcm_out = model.FCM_0(feats.to(dtype))
+    t = feats.shape[1]
+    if t >= FCM_MIN_T and fcm_supported(t, feats.shape[2]):
+        fcm_out = fcm_fused(packed_fcm, feats)
+    else:
+        fcm_out = model.FCM_0(feats.to(dtype))
     stats = trunk_stats(packed, fcm_out, tvalids)
     return model.DenseBN_0(stats.to(dtype)).float()
 
 
 def make_campplus_masked_embed_fn(model, featurizer):
-    """Pack the trunk once and return ``call(waves (B, L) tensor,
-    ratios (B,) or None) -> embeddings (B, embd_dim)``.
+    """Pack the trunk and the FCM once and return ``call(waves (B, L)
+    tensor, ratios (B,) or None) -> embeddings (B, embd_dim)``.
 
     With ratios the features take the masked CMN and the trunk the
     per-utterance valid counts; with ``None`` every frame is valid."""
     packed = pack_trunk(model)
+    packed_fcm = pack_fcm(model)
 
     def call(waves, ratios=None):
         feats = featurizer(waves, input_lens_ratio=ratios)
         t_valid, _ = trunk_geometry(feats.shape[1])
         tvalids = None if ratios is None else tvalids_from_ratios(ratios, t_valid)
-        return campplus_embed_fast(model, packed, feats, tvalids)
+        return campplus_embed_fast(model, packed, packed_fcm, feats, tvalids)
 
     return call

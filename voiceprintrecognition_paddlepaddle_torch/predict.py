@@ -2,11 +2,18 @@
 persistent audio database (counterpart of the JAX ``predict.py``).
 
 The embed path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
-fbank kernel, CMN, FCM (plain convs), the whole-trunk kernel and the
-DenseBN head. On ``device="cuda"`` it runs the CUDA kernels and never
-falls back; on ``device="cpu"`` the same wrappers run their plain
-PyTorch versions. Batches pad to bucketed lengths and carry per-utterance
-length ratios, so a padded clip gives its exact-length embedding.
+fbank kernel, CMN, the FCM (the FCM kernel from 1000 frames, the 16 s
+bucket and up; plain convs below), the whole-trunk kernel and the DenseBN
+head. On ``device="cuda"`` it runs the CUDA kernels and never falls back;
+on ``device="cpu"`` the same wrappers run their plain PyTorch versions.
+Batches pad to bucketed lengths and carry per-utterance length ratios, so
+a padded clip gives its exact-length embedding.
+
+Which path a batch takes depends on its bucket length alone, as in the
+JAX ``Predictor`` (``predict.py:91-96``, ``:382-407``): buckets of at
+most ``MAX_KERNEL_BUCKET_SAMPLES`` (32 s) take the kernel path; longer
+ones run the plain ``CAMPPlus.forward(feats, lengths=ratios)`` on the
+same device, as the JAX ``_jit_embed`` does.
 
 The audio database keeps the JAX package's pickle ``audio_indexes.bin``
 format (users_name / faces_feature / users_image_path).
@@ -22,17 +29,18 @@ import torch
 
 from .data_utils.collate import bucket_length
 from .models import build_model
-from .models.trunk_kernel import MAX_T_RAW, make_campplus_masked_embed_fn
+from .models.trunk_kernel import make_campplus_masked_embed_fn
 from .ops.audio import AudioSegment
 from .ops.features import AudioFeaturizer
 from .utils.logger import logger
 from .utils.utils import dict_to_object
 
-__all__ = ["Predictor", "MAX_BUCKET_SAMPLES"]
+__all__ = ["Predictor", "MAX_KERNEL_BUCKET_SAMPLES"]
 
-# longest bucket the trunk kernel serves without the FCM kernel: 8 s at
-# 16 kHz (798 feature frames)
-MAX_BUCKET_SAMPLES = 128000
+# longest bucket the kernel path serves: 32 s at 16 kHz (3198 frames, the
+# trunk kernel's MAX_T_RAW); the JAX Predictor's 640,000-sample fast-path
+# cap admits the same buckets
+MAX_KERNEL_BUCKET_SAMPLES = 512000
 
 
 def _load_configs(configs):
@@ -231,8 +239,8 @@ class Predictor:
 
     def predict_batch(self, audios_data, sample_rate=16000, batch_size=32):
         """Batched embeddings: each chunk pads to its bucket length and
-        carries per-utterance length ratios. Buckets beyond 8 s raise
-        ``NotImplementedError`` until the FCM kernel is ported."""
+        carries per-utterance length ratios. Chunks whose bucket is longer
+        than ``MAX_KERNEL_BUCKET_SAMPLES`` run the plain model."""
         samples = []
         for audio in audios_data:
             if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
@@ -243,21 +251,27 @@ class Predictor:
         for i in range(0, len(samples), batch_size):
             chunk = samples[i:i + batch_size]
             max_len = bucket_length(max(len(s) for s in chunk))
-            if max_len > MAX_BUCKET_SAMPLES:
-                raise NotImplementedError(
-                    f"FCM kernel not yet ported: buckets above "
-                    f"{MAX_BUCKET_SAMPLES} samples ({MAX_T_RAW} frames) "
-                    f"need it, got {max_len}; see ROADMAP.md")
             waves = np.zeros((len(chunk), max_len), np.float32)
             ratios = np.ones((len(chunk),), np.float32)
             for j, s in enumerate(chunk):
                 waves[j, :len(s)] = s
                 ratios[j] = len(s) / max_len
-            exact = bool(np.all(ratios == 1.0))
-            emb = self._embed(torch.from_numpy(waves).to(self.device),
-                              None if exact else ratios)
+            waves_t = torch.from_numpy(waves).to(self.device)
+            if max_len <= MAX_KERNEL_BUCKET_SAMPLES:
+                exact = bool(np.all(ratios == 1.0))
+                emb = self._embed(waves_t, None if exact else ratios)
+            else:
+                emb = self._embed_plain(waves_t, ratios)
             features.append(emb.cpu().numpy())
         return np.concatenate(features, axis=0)
+
+    @torch.no_grad()
+    def _embed_plain(self, waves, ratios):
+        """The plain model on a padded batch (JAX ``_embed_impl``): masked
+        CMN, then ``CAMPPlus.forward`` with length-aware pooling."""
+        feats = self._audio_featurizer(waves, input_lens_ratio=ratios)
+        lengths = torch.from_numpy(ratios).to(self.device)
+        return self.model(feats, lengths=lengths).float()
 
     def contrast(self, audio_data1, audio_data2):
         """1:1 cosine similarity."""
