@@ -29,6 +29,19 @@ Phases (any failure raises and the script exits non-zero):
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
             and b32 x 16 s; the FCM kernel also against the model's plain
             FCM (cuDNN), and the stages of the b32 x 16 s embed
+8. serve    the serving surface on the card: speaker_diarization of
+            dataset/test_long.wav (28.8 s; 1.5 s chunks padded to the 2 s
+            bucket, the masked path) without an oracle count, with
+            speaker_num=2 and against the audio db, each chunk embedding
+            held against the eager fp32 model at exact length; a CAM++ at
+            init_channels 32, which takes the plain model and launches no
+            FCM or trunk kernel; two in-process HTTP servers (serve.py's
+            make_handler, one plain and one with a MicroBatcher), every
+            endpoint, 64 concurrent /embedding requests held against a
+            main-thread embed; then /embedding P50/P99 latency over 100
+            serial requests, micro-batched requests/s with 64 clients
+            over 512 requests, the diarization wall time, and where one
+            request's time goes (HTTP, decode, the b1 and b64 embed stages)
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.
@@ -39,7 +52,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -186,6 +203,328 @@ def check_ragged(embed, rng, bucket, valids, dev):
             raise AssertionError("padded row disagrees with exact length")
 
 
+def wav_bytes(samples, sr=16000):
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def http_post(url, body=b""):
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def http_get(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def check_segments(name, segs, n_max=None, named=False):
+    """A diarization output: ordered, non-empty {speaker, start, end} rows."""
+    ok = bool(segs) and all(set(s) == {"speaker", "start", "end"}
+                            and s["end"] > s["start"] for s in segs)
+    ok = ok and all(a["end"] <= b["start"] + 1e-9
+                    for a, b in zip(segs, segs[1:]))
+    speakers = {s["speaker"] for s in segs}
+    if n_max is not None:
+        ok = ok and len(speakers) <= n_max
+    if named:
+        ok = ok and all(isinstance(s, str) for s in speakers)
+    log(f"[serve] diarization {name}: {len(segs)} segments, speakers "
+        f"{sorted(map(str, speakers))}, {segs[0]['start']}-{segs[-1]['end']} s")
+    if not ok:
+        raise AssertionError(f"diarization output malformed ({name}): {segs}")
+
+
+def reset_launches(fk, fkm, tk):
+    fk.fbank_fused.launches = 0
+    fkm.fcm_fused.launches = 0
+    tk.trunk_stats.launches = 0
+
+
+def read_launches(fk, fkm, tk):
+    torch.cuda.synchronize()
+    return {"fbank": fk.fbank_fused.launches, "fcm": fkm.fcm_fused.launches,
+            "campplus_trunk": tk.trunk_stats.launches}
+
+
+def serving_breakdown(pred, model, url, bodies, card, dev):
+    """Where a 3 s /embedding request spends its time: host wall medians
+    of an HTTP round trip without and with the 3 s body (GET /users, a
+    POST that answers 404), WAV decode + dB normalisation, and
+    predict_batch at b1 (also from a new thread each time, as a server
+    that starts a thread per request would call it) and b64; CUDA-event
+    device times of the b1 and b64 embed stages (fbank + CMN, plain FCM,
+    trunk kernel, head)."""
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+
+    def wall_ms(fn, n):
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts)) * 1e3
+
+    def post_404():
+        try:
+            http_post(f"{url}/nope", bodies[0])
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                raise
+
+    def in_new_thread(fn):
+        t = threading.Thread(target=fn)
+        t.start()
+        t.join()
+
+    samples = [pred._load_audio(b).samples for b in bodies]
+    res = {
+        "http_get_users": wall_ms(lambda: http_get(f"{url}/users"), 50),
+        "http_post_3s_body_404": wall_ms(post_404, 50),
+        "predict_batch_b1_new_thread": wall_ms(lambda: in_new_thread(
+            lambda: pred.predict_batch(samples[:1])), 50),
+        "load_audio": wall_ms(lambda: pred._load_audio(bodies[0]), 50),
+        "predict_batch_b1": wall_ms(lambda: pred.predict_batch(samples[:1]),
+                                    50),
+        "predict_batch_b64": wall_ms(
+            lambda: pred.predict_batch(samples, batch_size=64), 10),
+    }
+    feat, packed = pred._audio_featurizer, tk.pack_trunk(model)
+    for b in (1, 64):
+        n = len(samples[0])
+        bucket = 64000
+        waves = torch.zeros((b, bucket), device=dev)
+        for i in range(b):
+            waves[i, :n] = torch.from_numpy(samples[i])
+        ratios = np.full((b,), n / bucket, np.float32)
+        with torch.no_grad():
+            feats = feat(waves, input_lens_ratio=ratios)
+            t_valid, _ = tk.trunk_geometry(feats.shape[1])
+            tv = tk.tvalids_from_ratios(ratios, t_valid)
+            fcm = model.FCM_0(feats)
+            stats = tk.trunk_stats(packed, fcm, tv)
+            res[f"b{b}_featurize"] = cuda_ms(
+                lambda: feat(waves, input_lens_ratio=ratios), 20)
+            res[f"b{b}_fcm_plain"] = cuda_ms(lambda: model.FCM_0(feats), 20)
+            res[f"b{b}_trunk_kernel"] = cuda_ms(
+                lambda: tk.trunk_stats(packed, fcm, tv), 20)
+            res[f"b{b}_head"] = cuda_ms(lambda: model.DenseBN_0(stats), 20)
+    log(f"[times] {card}: serving breakdown (ms; host wall medians, CUDA-"
+        f"event device times per stage): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res.items()))
+    return res
+
+
+def serve_phase(model, dev, card, rng):
+    """Phase 8: diarization, the narrow plain path and HTTP serving on
+    the card. Returns the numbers for the kernels line."""
+    from voiceprintrecognition_paddlepaddle_torch import serve
+    from voiceprintrecognition_paddlepaddle_torch.infer_utils.micro_batcher \
+        import MicroBatcher
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
+        CAMPPlus
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+    from voiceprintrecognition_paddlepaddle_torch.ops import features, kaldi
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="vpr_serve_")
+    servers = []
+    try:
+        model_path = os.path.join(work, "model.pt")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                   model_path)
+        db = os.path.join(work, "audio_db")
+        shutil.copytree(os.path.join(ROOT, "audio_db"), db,
+                        ignore=shutil.ignore_patterns("audio_indexes.bin"))
+        long_wav = os.path.join(ROOT, "dataset", "test_long.wav")
+        pred = Predictor(CONFIG, threshold=0.6, audio_db_path=db,
+                         model_path=model_path, device="cuda")
+
+        # ---- diarization on the main thread ----------------------------
+        seen = []
+        cluster = pred.speaker_diarize.clustering
+        pred.speaker_diarize.clustering = (
+            lambda f, speaker_num=None: seen.append(f)
+            or cluster(f, speaker_num=speaker_num))
+        reset_launches(fk, fkm, tk)
+        auto = pred.speaker_diarization(long_wav)
+        two = pred.speaker_diarization(long_wav, speaker_num=2)
+        named = pred.speaker_diarization(long_wav, search_audio_db=True)
+        launches = read_launches(fk, fkm, tk)
+        log(f"[serve] diarization of test_long.wav x3: launches {launches}")
+        if launches["fbank"] < 3 or launches["campplus_trunk"] < 3:
+            raise AssertionError(f"diarization missed a kernel: {launches}")
+        out["launches_diarization"] = launches
+        check_segments("without an oracle count", auto)
+        check_segments("speaker_num=2", two, n_max=2)
+        check_segments("search_audio_db", named, named=True)
+        segments = pred.speaker_diarize.segments_audio(
+            pred._load_audio(long_wav))
+        chunks = torch.from_numpy(np.stack([s[2] for s in segments])).to(dev)
+        with torch.no_grad():
+            ref = model(features.apply_cmn_and_mask(
+                kaldi.fbank(chunks, n_mels=80)))
+        got = torch.from_numpy(seen[0]).to(dev)
+        c = cos_min(ref, got)
+        log(f"[serve] {len(segments)} chunk embeddings ({chunks.shape[1]} "
+            f"samples in the 32000-sample bucket): min cos vs eager fp32 "
+            f"model at exact length = {c:.6f} (bar 0.999)")
+        if not (got.shape == ref.shape and c > 0.999):
+            raise AssertionError("diarization chunk embeddings disagree")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pred.speaker_diarization(long_wav)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out["diarization_s"] = walls
+        log(f"[times] {card}: diarization of test_long.wav (28.8 s, "
+            f"{len(segments)} chunks) wall {walls} s")
+
+        # ---- a CAM++ off the stock widths: the plain model -------------
+        narrow = CAMPPlus(80, embd_dim=32, init_channels=32)
+        narrow.load_state_dict(jax_to_torch_state(
+            random_flax_variables(narrow, SEED)))
+        narrow_path = os.path.join(work, "narrow.pt")
+        torch.save(narrow.state_dict(), narrow_path)
+        cfg = dict(CONFIG, model_conf=dict(
+            CONFIG["model_conf"],
+            model_args={"embd_dim": 32, "init_channels": 32}))
+        reset_launches(fk, fkm, tk)
+        npred = Predictor(cfg, model_path=narrow_path, device="cuda")
+        clip = (rng.randn(32000) * 0.1).astype(np.float32)
+        embs = npred.predict_batch([clip, clip[:20000]])
+        launches = read_launches(fk, fkm, tk)
+        narrow = narrow.to(dev).eval()
+        with torch.no_grad():
+            ref = narrow(features.apply_cmn_and_mask(kaldi.fbank(
+                torch.from_numpy(clip).to(dev)[None], n_mels=80)))
+        c = cos_min(ref, torch.from_numpy(embs[:1]).to(dev))
+        log(f"[serve] init_channels 32 CAM++: embeddings {embs.shape}, "
+            f"launches {launches}; 2 s clip cos vs eager model {c:.6f} "
+            f"(bar 0.9999)")
+        if not (embs.shape == (2, 32) and np.isfinite(embs).all()
+                and launches["fcm"] == 0 and launches["campplus_trunk"] == 0
+                and launches["fbank"] >= 1 and c > 0.9999):
+            raise AssertionError("the narrow CAM++ did not take the plain "
+                                 "model")
+
+        # ---- HTTP: a plain and a micro-batched server ------------------
+        batcher = MicroBatcher(pred, window_ms=5.0, max_batch=64)
+        urls = []
+        for handler in (serve.make_handler(pred),
+                        serve.make_handler(pred, batcher)):
+            httpd = serve.ServingHTTPServer(("127.0.0.1", 0), handler)
+            servers.append(httpd)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            urls.append(f"http://127.0.0.1:{httpd.server_address[1]}")
+        plain_url, batched_url = urls
+
+        def main_thread_embed(body):
+            return pred.predict_batch([pred._load_audio(body).samples])[0]
+
+        bodies = [wav_bytes((rng.randn(48000) * 0.1).astype(np.float32))
+                  for _ in range(64)]
+        with open(long_wav, "rb") as f:
+            long_body = f.read()
+        ref = torch.from_numpy(np.stack([main_thread_embed(b)
+                                         for b in bodies]))
+        reset_launches(fk, fkm, tk)
+        for i, url in enumerate(urls):
+            emb = np.asarray(http_post(f"{url}/embedding", bodies[0])
+                             ["embedding"], np.float32)
+            c = cos_min(torch.from_numpy(emb[None]), ref[:1])
+            score = http_post(f"{url}/contrast?other=user_a/0.wav",
+                              bodies[1])["score"]
+            reg = http_post(f"{url}/register?name=smoke_{i}", bodies[2])
+            rec = http_post(f"{url}/recognition?threshold=0", bodies[2])
+            users = http_get(f"{url}/users")["users"]
+            stats = http_get(f"{url}/stats")
+            log(f"[serve] {url}: /embedding cos vs main thread {c:.6f} (bar "
+                f"0.9999); /contrast {score:.4f}; /register {reg}; "
+                f"/recognition {rec}; /users {sorted(set(users))}; /stats "
+                f"{stats}")
+            if not (c > 0.9999 and reg["success"] and rec["name"]
+                    and np.isfinite(score)):
+                raise AssertionError(f"an endpoint failed on {url}")
+        segs = http_post(f"{plain_url}/diarization?speakers=2&search_db=1",
+                         long_body)["segments"]
+        check_segments("over HTTP", segs, n_max=2, named=True)
+        items0, batches0 = batcher.items, batcher.batches
+        with ThreadPoolExecutor(64) as pool:
+            embs = list(pool.map(lambda b: np.asarray(http_post(
+                f"{batched_url}/embedding", b)["embedding"], np.float32),
+                bodies))
+        items, batches = batcher.items - items0, batcher.batches - batches0
+        launches = read_launches(fk, fkm, tk)
+        c = cos_min(torch.from_numpy(np.stack(embs)), ref)
+        log(f"[serve] 64 concurrent /embedding (3 s clips) through the "
+            f"micro-batcher: {items} items in {batches} batches; min cos vs "
+            f"main-thread embeds {c:.6f} (bar 0.9999); launches over the "
+            f"HTTP run {launches}")
+        if not (c > 0.9999 and batches < items == 64):
+            raise AssertionError("micro-batched embeddings disagree")
+        if launches["fbank"] < 1 or launches["campplus_trunk"] < 1:
+            raise AssertionError(f"HTTP serving missed a kernel: {launches}")
+        out["launches_http"] = launches
+
+        # ---- serving numbers -------------------------------------------
+        for _ in range(5):
+            http_post(f"{plain_url}/embedding", bodies[0])
+        lat = []
+        for i in range(100):
+            t0 = time.perf_counter()
+            http_post(f"{plain_url}/embedding", bodies[i % 64])
+            lat.append(time.perf_counter() - t0)
+        p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+        log(f"[times] {card}: /embedding, 3 s clip, 100 serial requests: "
+            f"P50 {p50:.3f} ms, P99 {p99:.3f} ms, mean "
+            f"{1e3 * sum(lat) / len(lat):.3f} ms")
+
+        def client(k):
+            for j in range(8):
+                http_post(f"{batched_url}/embedding", bodies[(k + j) % 64])
+
+        items0, batches0 = batcher.items, batcher.batches
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(64) as pool:
+            list(pool.map(client, range(64)))
+        wall = time.perf_counter() - t0
+        rps = 512 / wall
+        n_b = batcher.batches - batches0
+        log(f"[times] {card}: micro-batched /embedding, 64 clients x 8 "
+            f"requests of 3 s clips: {rps:.1f} requests/s ({wall:.3f} s; "
+            f"{batcher.items - items0} items in {n_b} batches, mean batch "
+            f"{(batcher.items - items0) / max(n_b, 1):.1f})")
+        out.update(embedding_p50_ms=p50, embedding_p99_ms=p99,
+                   batched_requests_per_s=rps)
+        out["breakdown_ms"] = serving_breakdown(
+            pred, model, plain_url, bodies, card, dev)
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -309,9 +648,7 @@ def main():
         clip_16 = (rng.randn(15 * 16000) * 0.1).astype(np.float32)
         clip_33 = (rng.randn(33 * 16000) * 0.1).astype(np.float32)
 
-        fk.fbank_fused.launches = 0
-        fkm.fcm_fused.launches = 0
-        tk.trunk_stats.launches = 0
+        reset_launches(fk, fkm, tk)
         t0 = time.perf_counter()
         pred = Predictor(CONFIG, threshold=-1.0, audio_db_path=db,
                          model_path=model_path, device="cuda")
@@ -324,11 +661,8 @@ def main():
         emb_16 = pred.predict_batch([clip_16])[0]
         kernel_counts = (fkm.fcm_fused.launches, tk.trunk_stats.launches)
         emb_33 = pred.predict_batch([clip_33])
-        torch.cuda.synchronize()
+        launches = read_launches(fk, fkm, tk)
         main_s = time.perf_counter() - t0
-        launches = {"fbank": fk.fbank_fused.launches,
-                    "fcm": fkm.fcm_fused.launches,
-                    "campplus_trunk": tk.trunk_stats.launches}
         log(f"[main] Predictor(device='cuda') in {main_s:.2f} s: register "
             f"{ok_a} {ok_b}; users {sorted(set(pred.get_users()))}; "
             f"recognition {rec}; contrast(a_1, a_2) = {score:.4f}; "
@@ -424,6 +758,9 @@ def main():
         f"plain {tr16_plain} ms")
     log(f"[times] {card}: whole embed b32 x 16 s {embed16_ms:.3f} ms/batch = "
         f"{32e3 / embed16_ms:.1f} utt/s; stages {stages16} ms")
+
+    # ---- 8. serve: diarization, the narrow path, HTTP -------------------
+    served = serve_phase(model, dev, card, rng)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     k16, p16, cud16 = fcm_times["b32 x 16 s"]
@@ -444,7 +781,8 @@ def main():
          "ms": ms(tr_kern), "plain_ms": ms(tr_plain), "shape": "b256 x 3 s",
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain)},
     ], "embed_utt_per_s": 256e3 / embed_ms,
-        "embed_16s_utt_per_s": 32e3 / embed16_ms, "card": card}), flush=True)
+        "embed_16s_utt_per_s": 32e3 / embed16_ms, "serve": served,
+        "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

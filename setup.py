@@ -27,6 +27,8 @@ setup(
         "voiceprintrecognition_paddlepaddle_tpu.native": ["*.cpp"],
         # the PyTorch port's CUDA sources, built by nvcc at first use
         "voiceprintrecognition_paddlepaddle_torch": ["csrc/*.cu"],
+        # and its C++ audio I/O source, built by g++ at first use
+        "voiceprintrecognition_paddlepaddle_torch.native": ["*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -1,7 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, at the shapes the main path gives it. Every test here is marked
-``gpu`` and skips without a CUDA device. This file imports no jax (the GPU
-host has none); run it there with
+version, at the shapes the main path gives it, and the serving surface
+(diarization, an HTTP round trip through the micro-batcher) on
+``Predictor(device="cuda")``. Every test here is marked ``gpu`` and skips
+without a CUDA device. This file imports no jax (the GPU host has none);
+run it there with
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
@@ -10,6 +12,12 @@ trunk cos > 0.9999 and max |d| / scale < 5e-3
 (``tests/test_pallas_campplus.py:47-48``); FCM cos > 0.9999 and
 max |d| / scale < 5e-2 (``tests/test_pallas_fcm.py:55-56``).
 """
+
+import json
+import os
+import shutil
+import threading
+import urllib.request
 
 import numpy as np
 import pytest
@@ -104,3 +112,78 @@ def test_fcm_kernel_matches_plain_version(cuda, model, b, t):
     cos = float((got * ref).sum() / (got.norm() * ref.norm()))
     assert cos > 0.9999
     assert float((got - ref).abs().max()) < 5e-2 * max(1.0, float(ref.abs().max()))
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def predictor(cuda, model, tmp_path_factory):
+    from chip_smoke import CONFIG
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+
+    root = tmp_path_factory.mktemp("gpu_serve")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+               str(root / "model.pt"))
+    db = str(root / "db")
+    shutil.copytree(os.path.join(ROOT, "audio_db"), db,
+                    ignore=shutil.ignore_patterns("audio_indexes.bin"))
+    return Predictor(CONFIG, model_path=str(root / "model.pt"),
+                     audio_db_path=db, device="cuda")
+
+
+def test_diarization_on_cuda(predictor):
+    wav = os.path.join(ROOT, "dataset", "test_long.wav")
+    before = (fk.fbank_fused.launches, tk.trunk_stats.launches)
+    for kw in ({}, {"speaker_num": 2}, {"search_audio_db": True}):
+        out = predictor.speaker_diarization(wav, **kw)
+        assert out and all(o["end"] > o["start"] for o in out)
+        if kw.get("speaker_num"):
+            assert len({o["speaker"] for o in out}) <= 2
+        if kw.get("search_audio_db"):
+            assert all(isinstance(o["speaker"], str) for o in out)
+    torch.cuda.synchronize()
+    assert fk.fbank_fused.launches >= before[0] + 3
+    assert tk.trunk_stats.launches >= before[1] + 3
+
+
+def test_http_round_trip_on_cuda(predictor):
+    from voiceprintrecognition_paddlepaddle_torch import serve
+    from voiceprintrecognition_paddlepaddle_torch.infer_utils.micro_batcher \
+        import MicroBatcher
+
+    batcher = MicroBatcher(predictor, window_ms=20.0, max_batch=16)
+    httpd = serve.ServingHTTPServer(("127.0.0.1", 0),
+                                    serve.make_handler(predictor, batcher))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/embedding"
+    with open(os.path.join(ROOT, "dataset", "a_1.wav"), "rb") as f:
+        body = f.read()
+    try:
+        def post(_):
+            req = urllib.request.Request(url, data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return np.asarray(json.loads(r.read())["embedding"])
+
+        before = tk.trunk_stats.launches
+        results = [None] * 8
+        threads = [threading.Thread(
+            target=lambda i=i: results.__setitem__(i, post(i)))
+            for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    want = predictor.predict_batch(
+        [predictor._load_audio(body).samples])[0]
+    for got in results:
+        assert got.shape == (192,)
+        assert float(got @ want / np.linalg.norm(got)
+                     / np.linalg.norm(want)) > 0.9999
+    assert tk.trunk_stats.launches > before
+    assert batcher.batches < batcher.items == 8
+

@@ -37,6 +37,58 @@ def synth_campplus(args, input_size=80, seed=0):
     return CAMPPlus(input_size=input_size, **args), variables, tmodel
 
 
+def tone(f0, seconds, seed, amp=0.3, sr=16000):
+    """A harmonic tone speaker with a little noise (``tests/test_predictor.py``)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.rand()) / h
+              for h in range(1, 5))
+    return (amp * (sig + 0.05 * rng.randn(len(t)))).astype(np.float32)
+
+
+def calibrate_bn_stats(variables, tmodel, waves):
+    """Re-estimate every BN's statistics of the port model on ``waves``
+    (one train-mode pass with cumulative averages) and write them into both
+    the flax ``variables`` and ``tmodel``. Random weights then give
+    embeddings that tell tone and noise speakers apart, as trained ones do;
+    before, every clip embeds at cos ~1 to every other."""
+    import torch
+
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.ops.features import \
+        AudioFeaturizer
+
+    feats = AudioFeaturizer("Fbank", {"sr": 16000, "n_mels": 80})(
+        torch.from_numpy(np.stack(waves)))
+    bns = {n: m for n, m in tmodel.named_modules()
+           if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))}
+    for m in bns.values():
+        m.reset_running_stats()
+        m.momentum = None
+    tmodel.train()
+    with torch.no_grad():
+        tmodel(feats)
+    for name, m in bns.items():
+        node = variables["batch_stats"]
+        for k in name.split("."):
+            node = node[k]
+        node["mean"] = m.running_mean.numpy().astype(np.float32)
+        node["var"] = m.running_var.numpy().astype(np.float32)
+    tmodel.load_state_dict(jax_to_torch_state(variables))
+    tmodel.eval()
+    return variables, tmodel
+
+
+def calibration_clips():
+    """Six tone speakers and four noise levels, 1.5 s each."""
+    rng = np.random.RandomState(0)
+    clips = [tone(f, 1.5, i) for i, f in enumerate((120, 150, 200, 260,
+                                                   330, 400))]
+    return clips + [(rng.randn(24000) * s).astype(np.float32)
+                    for s in (0.05, 0.1, 0.2, 0.3)]
+
+
 def cos_min(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.min((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)

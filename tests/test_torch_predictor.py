@@ -1,9 +1,11 @@
 """PyTorch port, the slice as a whole: ``Predictor(device="cpu")`` on the
 demo wavs against the JAX exact-length embedding (JAX features and
 ``CAMPPlus.apply`` on the unpadded clip), plus the Predictor's database
-surface (register / recognition / contrast / remove_user, the pickle
-index, the path-traversal guard), the 16 s bucket through the FCM
-kernel's module, and the plain branch past the 32 s bucket.
+surface (register / recognition / contrast / remove_user / retrieve, the
+pickle index, the path-traversal guard), the 16 s bucket through the FCM
+kernel's module, the plain branch past the 32 s bucket, and the choice of
+path by configuration: a CAM++ off the stock widths serves through the
+plain model and matches the JAX ``Predictor`` there (cos > 0.9999).
 
 The port pads each clip to its bucket and takes the masked path, whose
 CAM context is length-aware, so it is compared with the exact-length
@@ -21,7 +23,9 @@ import pytest
 import torch
 import yaml
 
-from test_torch_helpers import FULL, cos_min, synth_campplus
+from flax import serialization
+
+from test_torch_helpers import FULL, SMALL, cos_min, synth_campplus
 from voiceprintrecognition_paddlepaddle_torch import predict as tpredict
 from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
@@ -29,6 +33,8 @@ from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \
     AudioSegment as JaxAudioSegment
 from voiceprintrecognition_paddlepaddle_tpu.ops.features import \
     compute_feature
+from voiceprintrecognition_paddlepaddle_tpu.predict import \
+    Predictor as JaxPredictor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAVS = [os.path.join(ROOT, "dataset", f"{n}.wav")
@@ -207,3 +213,62 @@ def test_cuda_device_without_cuda_raises(world):
     model_path, _, _ = world
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(_configs(), model_path=model_path)
+
+
+def test_retrieve_threshold_is_per_call(world, tmp_path):
+    db = str(tmp_path / "db")
+    shutil.copytree(os.path.join(ROOT, "audio_db"), db)
+    pred = _predictor(world, db=db, threshold=0.6)
+    emb = pred.predict(os.path.join(db, "user_a", "0.wav"))[None]
+    assert pred.retrieve(emb)[0][0] == "user_a"
+    assert pred.retrieve(emb, threshold=1.01) == [[None, None]]
+    assert pred.threshold == 0.6
+    name, score = pred.retrieve(emb, threshold=0.0)[0]
+    assert name == "user_a" and score > 0.99
+
+
+def test_stock_config_takes_the_kernel_path(world, monkeypatch):
+    pred = _predictor(world)
+    assert pred._embed is not None
+    plain = []
+    monkeypatch.setattr(pred, "_embed_plain",
+                        lambda *a: plain.append(a) or pytest.fail("plain"))
+    pred.predict(WAVS[0])
+    assert plain == []
+
+
+@pytest.fixture(scope="module")
+def narrow(tmp_path_factory):
+    """A CAM++ at ``init_channels: 32`` (the tiny config of the verify
+    recipe), saved for both Predictors."""
+    _, v, tm = synth_campplus(SMALL, seed=4)
+    root = tmp_path_factory.mktemp("narrow")
+    torch.save(tm.state_dict(), str(root / "model.pt"))
+    (root / "model.msgpack").write_bytes(serialization.msgpack_serialize(v))
+    cfg = _configs()
+    cfg["model_conf"] = dict(cfg["model_conf"], model_args=dict(SMALL))
+    return cfg, str(root / "model.pt"), str(root / "model.msgpack")
+
+
+def test_narrow_campplus_serves_and_matches_jax(narrow, monkeypatch):
+    """The port's Predictor used to build the kernel path for any CAM++
+    and raised ``NotImplementedError`` at construction for this one; as in
+    the JAX ``_maybe_make_fast_embed`` it now runs the plain model, with
+    length ratios, for every batch."""
+    cfg, pt, msgpack = narrow
+    monkeypatch.setattr(
+        tpredict, "make_campplus_masked_embed_fn",
+        lambda *a: pytest.fail("the kernel path was built"))
+    pred = Predictor(cfg, model_path=pt, device="cpu")
+    assert pred._embed is None
+    jpred = JaxPredictor(cfg, model_path=msgpack, use_gpu=False)
+    rng = np.random.RandomState(8)
+    clips = [(rng.randn(n) * 0.05).astype(np.float32)
+             for n in (16000, 20000, 31000, 9000)]
+    got = pred.predict_batch(clips)
+    want = jpred.predict_batch(clips)
+    assert got.shape == want.shape == (4, 32)
+    assert cos_min(want, got) > 0.9999
+    one = pred.predict(WAVS[0])
+    assert cos_min(jpred.predict(WAVS[0])[None], one[None]) > 0.9999
+

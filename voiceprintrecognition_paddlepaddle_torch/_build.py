@@ -9,6 +9,9 @@ entry point returns ``cudaGetLastError()`` and ``check`` raises when it is
 not 0.
 
 Nothing here runs at import time: the CPU tests import every module.
+``kernel_library`` holds a lock while it builds and loads, so threads
+that ask for it at once (first requests of a threaded server) run one
+build and share one library.
 """
 
 import ctypes
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ["kernel_library", "check", "NVCC_FLAGS"]
@@ -25,6 +29,7 @@ __all__ = ["kernel_library", "check", "NVCC_FLAGS"]
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+_lock = threading.Lock()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -53,9 +58,14 @@ def _nvcc():
                        "toolkit (sm_90a) to build")
 
 
-@functools.lru_cache(maxsize=None)
 def kernel_library():
     """Build (once per source hash) and load the kernel library."""
+    with _lock:
+        return _kernel_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_library():
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:

@@ -1,7 +1,8 @@
-"""Inference surface: embeddings, 1:1 contrast and 1:N recognition over a
-persistent audio database (counterpart of the JAX ``predict.py``).
+"""Inference surface: embeddings, 1:1 contrast, 1:N recognition over a
+persistent audio database, and speaker diarization (counterpart of the
+JAX ``predict.py``).
 
-The embed path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
+The kernel path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
 fbank kernel, CMN, the FCM (the FCM kernel from 1000 frames, the 16 s
 bucket and up; plain convs below), the whole-trunk kernel and the DenseBN
 head. On ``device="cuda"`` it runs the CUDA kernels and never falls back;
@@ -9,11 +10,19 @@ on ``device="cpu"`` the same wrappers run their plain PyTorch versions.
 Batches pad to bucketed lengths and carry per-utterance length ratios, so
 a padded clip gives its exact-length embedding.
 
-Which path a batch takes depends on its bucket length alone, as in the
-JAX ``Predictor`` (``predict.py:91-96``, ``:382-407``): buckets of at
-most ``MAX_KERNEL_BUCKET_SAMPLES`` (32 s) take the kernel path; longer
-ones run the plain ``CAMPPlus.forward(feats, lengths=ratios)`` on the
-same device, as the JAX ``_jit_embed`` does.
+Which path a batch takes is decided as in the JAX ``Predictor``:
+
+- by the configuration, once, in ``__init__`` (JAX
+  ``_maybe_make_fast_embed``, ``predict.py:116-133``): the kernel path
+  serves exactly the stock CAM++ (growth 32, init_channels 128, bn_size 4)
+  on the 80-mel Fbank front end; any other configuration runs the plain
+  model for every batch;
+- by the bucket length (``predict.py:382-407``): buckets longer than
+  ``MAX_KERNEL_BUCKET_SAMPLES`` (32 s) run the plain model.
+
+The plain model is ``CAMPPlus.forward(feats, lengths=ratios)`` on the same
+device, the JAX ``_jit_embed``; featurizing still goes through the fbank
+kernel, which does not depend on the model.
 
 The audio database keeps the JAX package's pickle ``audio_indexes.bin``
 format (users_name / faces_feature / users_image_path).
@@ -28,14 +37,16 @@ import numpy as np
 import torch
 
 from .data_utils.collate import bucket_length
+from .infer_utils.speaker_diarization import SpeakerDiarization
 from .models import build_model
+from .models.campplus import CAMPPlus
 from .models.trunk_kernel import make_campplus_masked_embed_fn
 from .ops.audio import AudioSegment
 from .ops.features import AudioFeaturizer
 from .utils.logger import logger
 from .utils.utils import dict_to_object
 
-__all__ = ["Predictor", "MAX_KERNEL_BUCKET_SAMPLES"]
+__all__ = ["Predictor", "PPVectorPredictor", "MAX_KERNEL_BUCKET_SAMPLES"]
 
 # longest bucket the kernel path serves: 32 s at 16 kHz (3198 frames, the
 # trunk kernel's MAX_T_RAW); the JAX Predictor's 640,000-sample fast-path
@@ -78,8 +89,14 @@ class Predictor:
         self.model.load_state_dict(state)
         self.model.to(self.device).eval()
         logger.info(f"loaded model weights: {model_path}")
-        self._embed = make_campplus_masked_embed_fn(self.model,
-                                                    self._audio_featurizer)
+        self._embed = None
+        if self._kernel_path_applies():
+            self._embed = make_campplus_masked_embed_fn(
+                self.model, self._audio_featurizer)
+            if self.device.type == "cuda":
+                # build and load the kernels now, not in a first request
+                from ._build import kernel_library
+                kernel_library()
 
         # voiceprint database state (reference ``predict.py:69-86``)
         self.audio_feature = None
@@ -92,6 +109,16 @@ class Predictor:
             self.audio_indexes_path = os.path.join(audio_db_path,
                                                    "audio_indexes.bin")
             self.__load_audio_db(self.audio_db_path)
+        self.speaker_diarize = SpeakerDiarization()
+
+    def _kernel_path_applies(self):
+        """The stock CAM++ on the 80-mel Fbank front end (JAX
+        ``_maybe_make_fast_embed``, ``predict.py:123-133``)."""
+        m = self.model
+        return (isinstance(m, CAMPPlus) and m.growth_rate == 32
+                and m.init_channels == 128 and m.bn_size == 4
+                and self._audio_featurizer.feature_method == "Fbank"
+                and self._audio_featurizer.feature_dim == 80)
 
     # ------------------------------------------------------------------
     # audio db persistence (pickle format of reference predict.py:89-109)
@@ -206,6 +233,13 @@ class Predictor:
                 results.append([None, None])
         return results
 
+    def retrieve(self, np_features, threshold=None):
+        """Public cosine retrieval: ``(N, D)`` embeddings -> list of
+        ``[name, score]`` / ``[None, None]`` rows (serving front ends that
+        embed through a batcher call this with ready features).
+        ``threshold`` overrides ``self.threshold`` for this call only."""
+        return self.__retrieval(np_features, threshold=threshold)
+
     def _load_audio(self, audio_data, sample_rate=16000):
         """Accepts path / file object / bytes / ndarray / AudioSegment."""
         if isinstance(audio_data, (str, BufferedReader)):
@@ -239,8 +273,9 @@ class Predictor:
 
     def predict_batch(self, audios_data, sample_rate=16000, batch_size=32):
         """Batched embeddings: each chunk pads to its bucket length and
-        carries per-utterance length ratios. Chunks whose bucket is longer
-        than ``MAX_KERNEL_BUCKET_SAMPLES`` run the plain model."""
+        carries per-utterance length ratios. A configuration off the kernel
+        path, and chunks whose bucket is longer than
+        ``MAX_KERNEL_BUCKET_SAMPLES``, run the plain model."""
         samples = []
         for audio in audios_data:
             if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
@@ -257,7 +292,9 @@ class Predictor:
                 waves[j, :len(s)] = s
                 ratios[j] = len(s) / max_len
             waves_t = torch.from_numpy(waves).to(self.device)
-            if max_len <= MAX_KERNEL_BUCKET_SAMPLES:
+            kernel = (self._embed is not None
+                      and max_len <= MAX_KERNEL_BUCKET_SAMPLES)
+            if kernel:
                 exact = bool(np.all(ratios == 1.0))
                 emb = self._embed(waves_t, None if exact else ratios)
             else:
@@ -339,3 +376,32 @@ class Predictor:
         self.audio_feature_mean = np.delete(self.audio_feature_mean, idx,
                                             axis=0)
         return True
+
+    def speaker_diarization(self, audio_data, sample_rate=16000,
+                            speaker_num=None, search_audio_db=False,
+                            threshold=None):
+        """VAD → chunk → batched embed → cluster → postprocess (JAX
+        ``predict.py:481-503``). ``threshold`` overrides ``self.threshold``
+        for the audio-db speaker naming only."""
+        seg = self._load_audio(audio_data, sample_rate)
+        segments = self.speaker_diarize.segments_audio(seg)
+        features = self.predict_batch([s[2] for s in segments],
+                                      sample_rate=sample_rate)
+        labels, centers = self.speaker_diarize.clustering(
+            features, speaker_num=speaker_num)
+        outputs = self.speaker_diarize.postprocess(segments, labels)
+        if search_audio_db:
+            if self.audio_feature is None:
+                raise ValueError("voiceprint database is empty; register "
+                                 "speakers first")
+            names = self.__retrieval(centers, threshold=threshold)
+            outputs = [{
+                "speaker": (names[o["speaker"]][0]
+                            or f"stranger{o['speaker']}"),
+                "start": o["start"], "end": o["end"],
+            } for o in outputs]
+        return outputs
+
+
+# reference-compatible alias
+PPVectorPredictor = Predictor
