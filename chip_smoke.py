@@ -6,7 +6,8 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
-2. build    nvcc builds csrc/*.cu for sm_90a; prints time and ptxas output
+2. build    nvcc builds csrc/*.cu for sm_90a (one process per source, all
+            at once); prints time and ptxas output
 3. fbank    the fbank kernel against its plain version, b256 x 3 s
 4. fcm      the FCM kernel against its plain version (both bf16) at full
             CAM++ width: b8 x 298 and b8 x 297 frames (where the JAX
@@ -18,7 +19,10 @@ Phases (any failure raises and the script exits non-zero):
             converted from the flax layout by models/convert.py:
             b256 x 298 frames, 3 x 798 frames, 1598 and 3198 frames exact
             and ragged, and ragged padded 8 s and 32 s batches held row by
-            row against their exact-length embeddings
+            row against their exact-length embeddings; then every cluster
+            size the kernel allows (R <= 400 rows per block) at b1 x 398
+            frames with ratio 0.75 (one /embedding), b2 x 3198 (ragged)
+            and b32 x 1598
 6. main     Predictor(device="cuda"): register / recognition / contrast
             over the demo wavs, predict_batch over 64 seeded 1-8 s clips
             and 8 seeded 9-30 s clips (the 32 s bucket), a 15 s clip (the
@@ -28,7 +32,13 @@ Phases (any failure raises and the script exits non-zero):
 7. times    CUDA-event times of each kernel against its plain version and
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
             and b32 x 16 s; the FCM kernel also against the model's plain
-            FCM (cuDNN), and the stages of the b32 x 16 s embed
+            FCM (cuDNN), and the stages of the b32 x 16 s embed; the trunk
+            at b256 x 298, b64 x 398, b1 x 398 and b32 x 1598 frames with
+            its default cluster split against the smallest cluster that
+            shape allows, in turns; every cluster size at the serving and
+            bucket shapes, and the resident clusters of every split the
+            rule may take; each kernel's bound (bytes or operations over
+            the H100's published peaks)
 8. serve    the serving surface on the card: speaker_diarization of
             dataset/test_long.wav (28.8 s; 1.5 s chunks padded to the 2 s
             bucket, the masked path) without an oracle count, with
@@ -48,6 +58,7 @@ is a JSON object with one entry per kernel.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -97,6 +108,120 @@ TRUNK_TPU_LOOPED = ("voiceprintrecognition_paddlepaddle_tpu/models/"
                     "pallas_campplus.py:458")
 FCM_TPU = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:251"
 FCM_TPU_CHUNKED = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:442"
+
+# published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside the
+# tensor cores, HBM3 bytes/s
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops, peak, nbytes):
+    """The least time for work of ``flops`` at ``peak`` FLOP/s that must
+    move ``nbytes``: {"bound_ms", "bound_by": "operations" or "bytes",
+    "work_gflop"}."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "work_gflop": flops / 1e9}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fbank_flops_per_frame(mel_nonzero, frame_len=400, n_fft=512):
+    """The least fp32 work of one Fbank frame: DC removal, pre-emphasis
+    and window (4 per sample), a 512-point FFT (2.5 N log2 N, the usual
+    count for a radix-2 FFT; a real FFT needs about half), the power of
+    256 bins and the mel filters' nonzero weights (a multiply-add each).
+    The kernel does a folded DFT as a product, about 30 times this."""
+    return (4 * frame_len + 2.5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2)
+            + 2 * mel_nonzero)
+
+
+def resident_table(tk, index):
+    """``{cs: {R: clusters}}``: how many clusters of ``cs`` blocks of R
+    rows the card holds at once (cudaOccupancyMaxActiveClusters), for
+    every split ``trunk_split`` may take (t16 from 64 to 1600 rows, t_valid
+    at both ends of each t16, which changes the segment arrays). Raises
+    if the two ends of a t16 disagree, since ``trunk_split`` keys the count
+    by (cs, R) alone."""
+    table = {}
+    for t16 in range(64, tk.MAX_T16 + 1, 16):
+        for cs in tk.CLUSTER_SIZES:
+            rows = tk.rows_per_block(t16, cs)
+            if rows > tk.SMEM_MAX_T16 or (cs > smallest_cluster(tk, t16)
+                                          and rows < 32):
+                continue
+            got = {tk._max_clusters(cs, rows, t_valid, index)
+                   for t_valid in (t16 - 15, t16)}
+            table.setdefault(cs, {}).setdefault(rows, set()).update(got)
+    out = {cs: {r: sorted(n) for r, n in sorted(row.items())}
+           for cs, row in sorted(table.items())}
+    if any(len(n) > 1 for row in out.values() for n in row.values()):
+        raise AssertionError(f"resident clusters depend on t_valid: {out}")
+    return {cs: {r: n[0] for r, n in row.items()} for cs, row in out.items()}
+
+
+def trunk_macs_per_row(tk):
+    """Multiply-adds of one trunk row: stem, 52 bottlenecks and local
+    convs, 3 transits (the CAM gate MLP is per segment, not per row)."""
+    plan = tk.trunk_plan()
+    return (5 * 320 * plan["init_channels"] + plan["lin1_rows"] * plan["bn_ch"]
+            + plan["n_layers"] * 3 * plan["bn_ch"] * plan["growth"]
+            + sum(bl["c_out"] * bl["c_transit"] for bl in plan["blocks"]))
+
+
+def trunk_bound(tk, packed, fcm_out, tv):
+    """Bound of one trunk call: the valid rows' products (rows past an
+    utterance's valid count need none) in bf16; bytes: the FCM output,
+    the weights and the stats."""
+    b, t_raw, _ = fcm_out.shape
+    t_valid, _ = tk.trunk_geometry(t_raw)
+    rows = b * t_valid if tv is None else int(np.sum(tv))
+    return bound(2.0 * trunk_macs_per_row(tk) * rows, PEAK_BF16,
+                 b * t_raw * 320 * 2 + nbytes(*packed.values()) + b * 1024 * 4)
+
+
+def cluster_sweep(tk, packed, model, rng, dev, card):
+    """Every cluster size the trunk allows at the serving and bucket
+    shapes: CUDA-event ms and how many such clusters the card holds
+    resident at once (cudaOccupancyMaxActiveClusters)."""
+    index = dev.index or 0
+    out = {}
+    for name, b, t, ratio in (("b1 x 398", 1, 398, 0.75),
+                              ("b30 x 198", 30, 198, 0.75),
+                              ("b30 x 398", 30, 398, 0.75),
+                              ("b64 x 398", 64, 398, 0.75),
+                              ("b256 x 298", 256, 298, None),
+                              ("b32 x 1598", 32, 1598, None),
+                              ("b1 x 3198", 1, 3198, None)):
+        t_valid, t16 = tk.trunk_geometry(t)
+        tv = (None if ratio is None else
+              tk.tvalids_from_ratios(np.full(b, ratio, np.float32), t_valid))
+        fx = model.FCM_0(torch.from_numpy(
+            rng.randn(b, t, 80).astype(np.float32)).to(dev))
+        row = {}
+        for cs in tk.CLUSTER_SIZES:
+            if cs < smallest_cluster(tk, t16):
+                continue
+            rows = tk.rows_per_block(t16, cs)
+            resident = tk._max_clusters(cs, rows, t_valid, index)
+            ms_ = cuda_ms(lambda: tk.trunk_stats(packed, fx, tv, cluster=cs),
+                          5 if b >= 32 else 10)
+            row[cs] = {"rows_per_block": rows, "resident_clusters": resident,
+                       "ms": ms_}
+        out[name] = row
+        log(f"[times] {card}: trunk cluster sweep {name} frames: " + "; ".join(
+            f"cluster={cs} R={r['rows_per_block']} resident="
+            f"{r['resident_clusters']} {r['ms']:.3f} ms" for cs, r in row.items()))
+    return out
+
+
+def smallest_cluster(tk, t16):
+    return next(c for c in tk.CLUSTER_SIZES
+                if tk.rows_per_block(t16, c) <= tk.SMEM_MAX_T16)
 
 
 def log(msg):
@@ -167,9 +292,9 @@ def cos_min(a, b):
     return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
 
 
-def check_trunk(name, model, packed, fcm_out, tv, tk):
+def check_trunk(name, model, packed, fcm_out, tv, tk, cluster=None):
     """Trunk kernel against its plain version; returns the stats max |d|."""
-    s_k = tk.trunk_stats(packed, fcm_out, tv)
+    s_k = tk.trunk_stats(packed, fcm_out, tv, cluster=cluster)
     s_p = tk.trunk_stats_reference(packed, fcm_out, tv)
     e_k = model.DenseBN_0(s_k)
     e_p = model.DenseBN_0(s_p)
@@ -247,6 +372,7 @@ def reset_launches(fk, fkm, tk):
     fk.fbank_fused.launches = 0
     fkm.fcm_fused.launches = 0
     tk.trunk_stats.launches = 0
+    tk.trunk_stats.cluster_launches = {}
 
 
 def read_launches(fk, fkm, tk):
@@ -629,6 +755,23 @@ def main():
                      dev)
         check_ragged(embed, rng, 512000, [512000, 400000, 256000, 170000],
                      dev)
+        # every cluster size the kernel allows at b1 x 398 (one
+        # /embedding: ratio 0.75), b2 x 3198 and b32 x 1598
+        checked = set()
+        for b, t, tv in ((1, 398, tk.tvalids_from_ratios([0.75], 199)),
+                         (2, 3198, [1600, 1101]), (32, 1598, None)):
+            _, t16 = tk.trunk_geometry(t)
+            f = model.FCM_0(torch.from_numpy(
+                rng.randn(b, t, 80).astype(np.float32)).to(dev))
+            for cs in tk.CLUSTER_SIZES:
+                if cs < smallest_cluster(tk, t16):
+                    continue
+                d = check_trunk(f"b{b} x {t} frames, tvalids "
+                                f"{None if tv is None else [int(v) for v in tv][:4]}, "
+                                f"cluster={cs}", model, packed, f, tv, tk,
+                                cluster=cs)
+                trunk_max = max(trunk_max, d)
+                checked.add(cs)
 
     # ---- 6. the main path: Predictor on the card --------------------------
     work = tempfile.mkdtemp(prefix="vpr_smoke_")
@@ -662,12 +805,14 @@ def main():
         kernel_counts = (fkm.fcm_fused.launches, tk.trunk_stats.launches)
         emb_33 = pred.predict_batch([clip_33])
         launches = read_launches(fk, fkm, tk)
+        main_clusters = dict(sorted(tk.trunk_stats.cluster_launches.items()))
         main_s = time.perf_counter() - t0
         log(f"[main] Predictor(device='cuda') in {main_s:.2f} s: register "
             f"{ok_a} {ok_b}; users {sorted(set(pred.get_users()))}; "
             f"recognition {rec}; contrast(a_1, a_2) = {score:.4f}; "
             f"predict_batch {embs.shape} + {long_embs.shape}; predict 15 s "
-            f"{emb_16.shape}; 33 s {emb_33.shape}; launches {launches}")
+            f"{emb_16.shape}; 33 s {emb_33.shape}; launches {launches}; "
+            f"trunk launches by cluster size {main_clusters}")
         if not (ok_a and ok_b and embs.shape == (64, 192)
                 and long_embs.shape == (8, 192) and emb_16.shape == (192,)
                 and emb_33.shape == (1, 192)
@@ -739,6 +884,30 @@ def main():
             lambda: tk.trunk_stats(packed, fcm16), 5, 2)
         embed16_ms = cuda_ms(lambda: embed(w16), 5)
         stats16 = tk.trunk_stats(packed, fcm16)
+        # the trunk with its default split against the smallest cluster
+        # the shape allows, in turns (smallest, default, default, smallest)
+        split_times = {}
+        for name, b, t, ratio, iters in (
+                ("b256 x 298", 256, 298, None, 10),
+                ("b64 x 398", 64, 398, 0.75, 10),
+                ("b1 x 398", 1, 398, 0.75, 20),
+                ("b32 x 1598", 32, 1598, None, 5)):
+            t_valid, t16 = tk.trunk_geometry(t)
+            tv = (None if ratio is None else
+                  tk.tvalids_from_ratios(np.full(b, ratio, np.float32), t_valid))
+            fx = {"b256 x 298": fcm_b256, "b32 x 1598": fcm16}.get(name)
+            if fx is None:
+                fx = model.FCM_0(torch.from_numpy(
+                    rng.randn(b, t, 80).astype(np.float32)).to(dev))
+            cs_def, rows = tk.default_split(b, t, dev)
+            cs_min = smallest_cluster(tk, t16)
+            k, p = turns(
+                lambda: tk.trunk_stats(packed, fx, tv, cluster=cs_min),
+                lambda: tk.trunk_stats(packed, fx, tv), iters)
+            split_times[name] = {
+                "cluster": cs_def, "rows_per_block": rows, "ms": k,
+                "smallest_cluster": cs_min, "smallest_cluster_ms": p,
+                **trunk_bound(tk, packed, fx, tv)}
         stages16 = {
             "featurize": cuda_ms(lambda: feat(w16), 10),
             "fcm kernel": cuda_ms(lambda: fkm.fcm_fused(packed_fcm, feats_16), 10),
@@ -758,6 +927,17 @@ def main():
         f"plain {tr16_plain} ms")
     log(f"[times] {card}: whole embed b32 x 16 s {embed16_ms:.3f} ms/batch = "
         f"{32e3 / embed16_ms:.1f} utt/s; stages {stages16} ms")
+    with torch.no_grad():
+        sweep = cluster_sweep(tk, packed, model, rng, dev, card)
+    resident = resident_table(tk, dev.index or 0)
+    log(f"[split] {card}: resident clusters by cluster size and rows per "
+        f"block (cs: {{R: clusters}}): {json.dumps(resident)}")
+    for name, st in split_times.items():
+        log(f"[times] {card}: trunk {name} frames, default split cluster="
+            f"{st['cluster']} (R={st['rows_per_block']}) {st['ms']} ms; "
+            f"smallest cluster={st['smallest_cluster']} "
+            f"{st['smallest_cluster_ms']} ms; bound {st['bound_ms']:.4f} ms "
+            f"({st['bound_by']}, {st['work_gflop']:.2f} GFLOP)")
 
     # ---- 8. serve: diarization, the narrow path, HTTP -------------------
     served = serve_phase(model, dev, card, rng)
@@ -765,21 +945,52 @@ def main():
 
     k16, p16, cud16 = fcm_times["b32 x 16 s"]
     k3, p3, cud3 = fcm_times["b256 x 3 s"]
+    # bounds at the shapes of "ms": fbank b256 x 3 s (fp32: a 512-point
+    # FFT per frame, not the kernel's folded DFT), FCM b32 x 16 s (bf16 convs),
+    # trunk b256 x 3 s (bf16 products over the valid rows)
+    _, mel, _ = fk.fbank_tables(16000, 80, dev)
+    n_frames = 256 * 298
+    fb_bound = bound(n_frames * fbank_flops_per_frame(int((mel != 0).sum())),
+                     PEAK_FP32, nbytes(waves) + n_frames * 80 * 4)
+    fcm_macs, f = 0, 80
+    for i, (_, _, stride) in enumerate(fkm._SPECS):
+        f = f // stride if stride else f
+        fcm_macs += packed_fcm[f"w{i}"].shape[0] * 32 * f
+    fcm_bounds = {name: bound(2.0 * fcm_macs * fx.shape[0] * fx.shape[1],
+                              PEAK_BF16, nbytes(fx) + nbytes(*packed_fcm.values())
+                              + fx.shape[0] * fx.shape[1] * 320 * 2)
+                  for name, fx in (("b32 x 16 s", feats_16),
+                                   ("b256 x 3 s", feats_3))}
+    tr_bound = trunk_bound(tk, packed, fcm_b256, None)
+    for name, bd in (("fbank b256 x 3 s", fb_bound),
+                     ("FCM b32 x 16 s", fcm_bounds["b32 x 16 s"]),
+                     ("FCM b256 x 3 s", fcm_bounds["b256 x 3 s"]),
+                     ("trunk b256 x 3 s", tr_bound)):
+        log(f"[times] {name}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{bd['work_gflop']:.2f} GFLOP) on the published H100 SXM peaks")
     print(json.dumps({"kernels": [
         {"name": "fbank", "route": "cuda", "source": FBANK_SRC,
          "replaces": FBANK_TPU, "launches": launches["fbank"],
-         "max_abs_err": fb_max, "ms": ms(fb_kern), "plain_ms": ms(fb_plain)},
+         "max_abs_err": fb_max, "ms": ms(fb_kern), "plain_ms": ms(fb_plain),
+         **fb_bound, "library_ms": None, "shape": "b256 x 3 s"},
         {"name": "fcm", "route": "cuda", "source": FCM_SRC,
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,
-         "ms": ms(k16), "plain_ms": ms(p16), "cudnn_ms": ms(cud16),
+         "ms": ms(k16), "plain_ms": ms(p16), **fcm_bounds["b32 x 16 s"],
+         "library_ms": None, "cudnn_ms": ms(cud16),
          "shape": "b32 x 16 s", "ms_b256x3s": ms(k3),
-         "plain_ms_b256x3s": ms(p3), "cudnn_ms_b256x3s": ms(cud3)},
+         "plain_ms_b256x3s": ms(p3), "cudnn_ms_b256x3s": ms(cud3),
+         "bound_ms_b256x3s": fcm_bounds["b256 x 3 s"]["bound_ms"],
+         "work_gflop_b256x3s": fcm_bounds["b256 x 3 s"]["work_gflop"]},
         {"name": "campplus_trunk", "route": "cuda", "source": TRUNK_SRC,
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
-         "ms": ms(tr_kern), "plain_ms": ms(tr_plain), "shape": "b256 x 3 s",
-         "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain)},
+         "ms": ms(tr_kern), "plain_ms": ms(tr_plain), **tr_bound,
+         "library_ms": None, "shape": "b256 x 3 s",
+         "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),
+         "cluster_launches_main_path": main_clusters,
+         "clusters_checked": sorted(checked), "split_times": split_times,
+         "cluster_sweep": sweep, "resident_clusters": resident},
     ], "embed_utt_per_s": 256e3 / embed_ms,
         "embed_16s_utt_per_s": 32e3 / embed16_ms, "serve": served,
         "card": card}), flush=True)

@@ -68,25 +68,97 @@ def model(cuda):
     return m.to(cuda).eval().requires_grad_(False)
 
 
-@pytest.mark.parametrize("t_raw,tvalids", [
-    (3198, None), (3198, [1600, 1101, 99]), (1598, None), (1598, [800, 433, 1]),
-    (798, None), (798, [399, 250, 37]), (298, None), (148, [74, 1, 60]),
-    (98, None)])
-def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids):
+# (t_raw, tvalids, cluster): the default split (cluster None), then every
+# cluster size at one request's length and at the 16 s and 32 s buckets
+TRUNK_CASES = [
+    (3198, None, None), (3198, [1600, 1101, 99], None), (1598, None, None),
+    (1598, [800, 433, 1], None), (798, None, None),
+    (798, [399, 250, 37], None), (298, None, None), (148, [74, 1, 60], None),
+    (98, None, None)] + [
+    (t_raw, tvalids, cluster)
+    for t_raw, tvalids in ((398, [150]), (1598, [800, 433, 1]),
+                           (3198, [1600, 1101, 99]))
+    for cluster in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("t_raw,tvalids,cluster", TRUNK_CASES)
+def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids,
+                                            cluster):
     packed = tk.pack_trunk(model)
+    b = 3 if tvalids is None else len(tvalids)
     feats = torch.from_numpy(np.random.RandomState(1).randn(
-        3, t_raw, 80).astype(np.float32)).to(cuda)
+        b, t_raw, 80).astype(np.float32)).to(cuda)
     fcm = model.FCM_0(feats)
+    _, t16 = tk.trunk_geometry(t_raw)
+    if cluster is not None and -(-t16 // (16 * cluster)) * 16 > tk.SMEM_MAX_T16:
+        with pytest.raises(ValueError, match="rows per block"):
+            tk.trunk_stats(packed, fcm, tvalids, cluster=cluster)
+        return
     before = tk.trunk_stats.launches
-    got = tk.trunk_stats(packed, fcm, tvalids)
+    by_size = dict(tk.trunk_stats.cluster_launches)
+    got = tk.trunk_stats(packed, fcm, tvalids, cluster=cluster)
     torch.cuda.synchronize()
     assert tk.trunk_stats.launches == before + 1
+    if cluster is not None:
+        assert tk.trunk_stats.cluster_launches[cluster] == by_size.get(cluster, 0) + 1
     ref = tk.trunk_stats_reference(packed, fcm, tvalids)
     got, ref = got.double().cpu(), ref.double().cpu()
     assert torch.isfinite(got).all()
     cos = (got * ref).sum(-1) / (got.norm(dim=-1) * ref.norm(dim=-1))
     assert float(cos.min()) > 0.9999
     assert float((got - ref).abs().max() / ref.abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("b,t_raw", [(256, 298), (64, 398), (1, 398),
+                                     (30, 223), (32, 1598), (1, 3198)])
+def test_trunk_default_split_is_trunk_split(cuda, model, b, t_raw):
+    packed = tk.pack_trunk(model)
+    fcm = torch.zeros((b, t_raw, 320), device=cuda)
+    t_valid, t16 = tk.trunk_geometry(t_raw)
+    cs, rows = tk.trunk_split(b, t16, lambda c, r: tk._max_clusters(
+        c, r, t_valid, torch.cuda.current_device()))
+    assert (cs, rows) == tk.default_split(b, t_raw, cuda)
+    by_size = dict(tk.trunk_stats.cluster_launches)
+    tk.trunk_stats(packed, fcm)
+    torch.cuda.synchronize()
+    assert tk.trunk_stats.cluster_launches[cs] == by_size.get(cs, 0) + 1
+
+
+def test_trunk_launches_of_different_sizes_from_many_threads(cuda, model):
+    """Threads of a server launch the trunk at shapes with different
+    shared-memory sizes (b1 x 398 at cs 8, b32 x 1598) at once; every
+    launch runs and gives what it gives alone (the kernel's sums run in a
+    fixed order, so bit for bit)."""
+    packed = tk.pack_trunk(model)
+    rng = np.random.RandomState(4)
+    cases = []
+    for b, t_raw, tvalids in ((1, 398, [150]), (32, 1598, None),
+                              (3, 798, [399, 250, 37])):
+        fcm = model.FCM_0(torch.from_numpy(
+            rng.randn(b, t_raw, 80).astype(np.float32)).to(cuda))
+        want = tk.trunk_stats(packed, fcm, tvalids)
+        cases.append((fcm, tvalids, want))
+    torch.cuda.synchronize()
+    errors, mismatches = [], []
+
+    def worker(k):
+        try:
+            for i in range(12):
+                fcm, tvalids, want = cases[(k + i) % len(cases)]
+                got = tk.trunk_stats(packed, fcm, tvalids)
+                torch.cuda.current_stream().synchronize()
+                if not torch.equal(got, want):
+                    mismatches.append((k, i))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not mismatches, (errors[:3], mismatches[:3])
 
 
 def test_trunk_rejects_buckets_beyond_32s(cuda, model):

@@ -5,6 +5,7 @@ scikit-learn (the GPU host has none of them); the copied host helpers
 kernel build reports a missing toolchain instead of running anything
 else, and threads that ask for the library at once share one build."""
 
+import glob
 import os
 import re
 import subprocess
@@ -113,7 +114,8 @@ def test_build_names_missing_toolchain(monkeypatch):
 def test_kernel_library_builds_once_for_concurrent_callers(monkeypatch,
                                                           tmp_path):
     """Eight threads ask for the library at once (the first requests of a
-    threaded server): one nvcc run, one library for all."""
+    threaded server): one build (an nvcc compile per source, then one
+    link), one library for all."""
     builds = []
 
     def fake_nvcc_run(cmd, **kw):
@@ -144,7 +146,9 @@ def test_kernel_library_builds_once_for_concurrent_callers(monkeypatch,
         assert not any(t.is_alive() for t in threads)
     finally:
         _build._kernel_library.cache_clear()
-    assert len(builds) == 1
+    links = [cmd for cmd in builds if "-shared" in cmd]
+    sources = glob.glob(os.path.join(_build._CSRC, "*.cu"))
+    assert len(links) == 1 and len(builds) == len(sources) + 1
     assert all(g is got[0] for g in got) and got[0].lib[0] == "lib"
     assert os.path.exists(got[0].path) and not got[0].cached
 

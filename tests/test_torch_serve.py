@@ -234,6 +234,44 @@ def test_requests_run_on_long_lived_threads():
     assert len(seen) == 12 and len(set(seen)) <= 3
 
 
+def test_requests_that_wait_on_each_other_each_get_a_thread():
+    """Concurrent requests that wait on one another (as micro-batched ones
+    wait for their batch) grow the pool: eight handlers meet at a barrier
+    of eight, which needs eight threads at once."""
+    from http.server import BaseHTTPRequestHandler
+
+    barrier = threading.Barrier(8, timeout=30)
+
+    class Meet(BaseHTTPRequestHandler):
+        def do_GET(self):
+            barrier.wait()
+            body = json.dumps(threading.get_ident()).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):
+            pass
+
+    eight = type("EightWorkers", (serve.ServingHTTPServer,), {"workers": 8})
+    httpd = eight(("127.0.0.1", 0), Meet)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/"
+    try:
+        seen = []
+        threads = [threading.Thread(target=lambda: seen.append(_get(url)))
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        _stop(httpd)
+    assert len(seen) == 8 and len(set(seen)) == 8
+
+
 def test_stats_and_unknown_endpoints(server):
     assert _get(f"{server}/stats") == {"batches": 0, "items": 0}
     with pytest.raises(urllib.error.HTTPError) as e:

@@ -2,13 +2,21 @@
 version of ``csrc/campplus_trunk.cu``) against the JAX Pallas trunk kernel
 run in interpret mode, at full width on a 1 s clip, exact-length and with
 per-utterance ``tvalids``, and on a 24 s input (1199 trunk rows, 12 CAM
-segments: the kernel's long mode); the host-side geometry against the JAX
-package's; and padding invariance of the plain version. The CUDA kernel
-itself is held against the plain version in ``test_torch_gpu.py``.
+segments: more rows than one block holds); the host-side geometry against
+the JAX package's; padding invariance of the plain version; the cluster
+split rule ``trunk_split``; and an emulation of the kernel's split of an
+utterance's rows across the blocks of a cluster (halo copy, partial CAM
+segment sums added in rank order, two-pass pooled exchange) against the
+plain version. The CUDA kernel itself is held against the plain version
+in ``test_torch_gpu.py``.
 
 Bar (``tests/test_pallas_campplus.py:47-48``): cos > 0.9999 and
 max |d| / scale < 5e-3 on the pooled stats; 0.999 for a padded row
-against its exact-length result (``:114``).
+against its exact-length result (``:114``). The emulated split: within
+1e-6 relative of the plain version with one block (the same sums in the
+same order), and cos > 0.99999 with relative max |d| < 1e-3 with more
+(only the order of the fp32 partial sums differs, which can flip a bf16
+rounding of the CAM context).
 """
 
 import math
@@ -17,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_helpers import FULL, cos_min, rel_err, synth_campplus
 from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
@@ -136,3 +145,202 @@ def test_cpu_tensor_runs_plain_version_without_launch(setup):
     torch.testing.assert_close(
         got, tk.trunk_stats_reference(packed, fcm, [30, 12]), rtol=0, atol=0)
 
+
+# resident clusters of an NVIDIA H100 80GB HBM3 for every split the rule
+# may take (chip_smoke.py's resident_table, cudaOccupancyMaxActiveClusters):
+# cs -> (largest R at two blocks per SM, clusters up to that R, clusters
+# above it). A cluster sits inside one GPC, so 30 clusters of 4 fit at one
+# block per SM, not 33.
+H100_RESIDENT = {1: (176, 264, 132), 2: (160, 132, 66), 4: (144, 62, 30),
+                 8: (128, 30, 15)}
+
+
+def h100_resident(cs, rows):
+    r_two, two, one = H100_RESIDENT[cs]
+    return two if rows <= r_two else one
+
+
+# (B, t16) -> (cs, R) at the serving and bucket shapes on that card
+SPLIT_TABLE = [((256, 160), (1, 160)), ((1, 208), (8, 32)),
+               ((64, 208), (2, 112)), ((30, 112), (4, 32)),
+               ((32, 800), (8, 112)), ((1, 1600), (8, 208))]
+
+
+@pytest.mark.parametrize("shape,want", SPLIT_TABLE)
+def test_trunk_split_table(shape, want):
+    assert tk.trunk_split(*shape, h100_resident) == want
+
+
+def _cost(b, t16, cs):
+    """Waves x 64-row chunks of ``cs`` blocks per utterance on the card."""
+    rows = tk.rows_per_block(t16, cs)
+    return -(-b // h100_resident(cs, rows)) * -(-rows // 64)
+
+
+@pytest.mark.parametrize("b", [1, 3, 30, 64, 256])
+def test_trunk_split_rule(b):
+    t16s = sorted({tk.trunk_geometry(t)[1] for t in range(98, 3199)})
+    assert t16s[0] == 64 and t16s[-1] == 1600
+    for t16 in t16s:
+        cs, rows = tk.trunk_split(b, t16, h100_resident)
+        assert rows % 16 == 0 and 16 <= rows <= tk.SMEM_MAX_T16, t16
+        assert cs in (1, 2, 4, 8), t16
+        assert cs * rows >= t16, t16            # the blocks cover the rows
+        assert rows == -(-t16 // (16 * cs)) * 16, t16
+        cs_min = next(c for c in (1, 2, 4, 8)
+                      if -(-t16 // (16 * c)) * 16 <= tk.SMEM_MAX_T16)
+        if cs > cs_min:
+            # a larger cluster only where it keeps 32 rows a block and
+            # takes fewer waves x chunks than the smallest, or as many
+            # in fewer waves
+            assert rows >= 32, t16
+            assert _cost(b, t16, cs) <= _cost(b, t16, cs_min), t16
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((16, 1600), (4, 400)), ((64, 400), (8, 64)), ((128, 208), (2, 112)),
+    ((100, 112), (2, 64)), ((8, 1600), (8, 208))])
+def test_trunk_split_waits_for_no_second_wave_it_can_avoid(shape, want):
+    """b16 x 1600: 16 clusters of 8 blocks of 208 rows cannot all be
+    resident (15), and 2 waves x 4 chunks lose to one wave of 7 at cs 4.
+    b64 x 400: three waves of one chunk at cs 8 beat one wave of four at
+    cs 2. b128 x 208 keeps 2 (one wave of 2 chunks) where cs 4 takes 3
+    waves of one."""
+    assert tk.trunk_split(*shape, h100_resident) == want
+
+
+@pytest.mark.parametrize("cluster", [3, 0, 16, 2.5])
+def test_bad_cluster_size_raises(setup, cluster):
+    """Checked before the device dispatch, so for CUDA tensors too."""
+    _, _, packed = setup
+    with pytest.raises(ValueError, match="cluster must be"):
+        tk.trunk_stats(packed, torch.zeros(1, 98, 320), cluster=cluster)
+
+
+@pytest.mark.parametrize("t_raw,cluster", [(1598, 1), (3198, 2)])
+def test_cluster_with_too_many_rows_per_block_raises(setup, t_raw, cluster):
+    _, _, packed = setup
+    with pytest.raises(ValueError, match="rows per block"):
+        tk.trunk_stats(packed, torch.zeros(1, t_raw, 320), cluster=cluster)
+
+
+def _emulate_split(packed, fcm_out, tvalids, cs):
+    """The kernel's split of each utterance's rows across ``cs`` blocks,
+    in PyTorch on the CPU: row-local phases per block's rows; the x2 halo
+    copied from the neighbours' edge rows; per-block partial CAM segment
+    sums added in rank order; pooled mean from partial sums, then std
+    from partial squared deviations. Rows are clipped at ``t_valid`` (the
+    kernel's rows past it are zero)."""
+    plan = tk.trunk_plan()
+    bf = torch.bfloat16
+    mm = lambda a, w: a.float() @ w.float()               # noqa: E731
+    b, t_raw, _ = fcm_out.shape
+    t_valid, t16 = tk.trunk_geometry(t_raw)
+    rows = -(-t16 // (16 * cs)) * 16
+    ranges = [(min(k * rows, t_valid), min((k + 1) * rows, t_valid))
+              for k in range(cs)]
+    tv = torch.as_tensor(np.asarray(tvalids)).long().clamp(1, t_valid)
+    t_idx = torch.arange(t_valid)
+    mask = (t_idx[None, :] < tv[:, None]).float()[..., None]
+
+    xp = F.pad(fcm_out.to(bf), (0, 0, 2, 2 * t_valid + 1 - t_raw))
+    cols = torch.cat([xp[:, k:k + 2 * t_valid - 1:2] for k in range(5)], -1)
+    sa = packed["stem_aff"]
+    xcat = torch.zeros((b, t_valid, 1024), dtype=bf)
+    for r0, r1 in ranges:
+        y = torch.relu((mm(cols[:, r0:r1], packed["w_stem"]) + sa[0])
+                       * sa[1] + sa[2])
+        xcat[:, r0:r1, :128] = (y * mask[:, r0:r1]).to(bf)
+
+    n_segs = -(-t_valid // 100)
+    seg_of = torch.clamp(t_idx // 100, max=n_segs - 1)
+    seg_mask = torch.stack([((t_idx >= s * 100) & (t_idx < (s + 1) * 100))
+                            for s in range(n_segs)]).float()
+    seg_mask = seg_mask[None] * mask[None, :, :, 0].transpose(0, 1)
+    seg_cnt = torch.clamp(seg_mask.sum(-1, keepdim=True), min=1)
+    zeros2 = torch.zeros((b, 2, 128), dtype=bf)
+    for l, spec in enumerate(plan["layers"]):
+        cin, off, dil = spec["cin"], spec["lin1_off"], spec["dil"]
+        la, cb = packed["lin1_aff"][l], packed["cam_bias"][l]
+        ab = packed["wide_ab"][l]
+        x2s = []
+        for r0, r1 in ranges:
+            h = torch.relu(xcat[:, r0:r1, :cin] * ab[0, :cin] + ab[1, :cin])
+            x2 = torch.relu((mm(h, packed["w_lin1"][off:off + cin]) + la[0])
+                            * la[1] + la[2])
+            x2s.append((x2 * mask[:, r0:r1]).to(bf))
+        # each block's partial segment sums, added in rank order
+        seg_sum = None
+        for (r0, r1), x2 in zip(ranges, x2s):
+            part = seg_mask[..., r0:r1] @ x2.float()
+            seg_sum = part if seg_sum is None else seg_sum + part
+        mean = seg_sum.sum(1, keepdim=True) / tv[:, None, None]
+        ctx = (mean + seg_sum / seg_cnt).to(bf)
+        c1 = torch.relu(mm(ctx, packed["w_cam1"][l]) + cb[64:]).to(bf)
+        gate = torch.sigmoid(mm(c1, packed["w_cam2"][l]) + cb[32:64]).to(bf)
+        c0 = plan["blocks"][spec["block"]]["c_in"] + spec["li"] * plan["growth"]
+        for k, ((r0, r1), x2) in enumerate(zip(ranges, x2s)):
+            if r1 == r0:
+                continue
+            left = x2s[k - 1][:, -2:] if k > 0 else zeros2
+            nxt = x2s[k + 1][:, :2] if k + 1 < cs else zeros2[:, :0]
+            right = torch.cat([nxt, zeros2[:, nxt.shape[1]:]], 1)
+            ext = torch.cat([left, x2, right], 1)
+            taps = torch.cat([ext[:, 2 + (j - 1) * dil:2 + (j - 1) * dil + r1 - r0]
+                              for j in range(3)], -1)
+            y = mm(taps, packed["w_local"][l]) + cb[:32]
+            g = gate[:, seg_of[r0:r1]].float()
+            xcat[:, r0:r1, c0:c0 + 32] = (y * g * mask[:, r0:r1]).to(bf)
+        if spec["li"] == plan["num_layers"][spec["block"]] - 1:
+            bi = spec["block"]
+            cw = plan["blocks"][bi]["c_out"]
+            abt = packed["wide_ab"][plan["n_layers"] + bi]
+            for r0, r1 in ranges:
+                h = torch.relu(xcat[:, r0:r1, :cw] * abt[0, :cw] + abt[1, :cw])
+                ht = mm(h, packed[f"w_t{bi}"]) + packed["tbias"][bi, :cw // 2]
+                xcat[:, r0:r1, :cw // 2] = (ht * mask[:, r0:r1]).to(bf)
+
+    cf, oa = plan["final_channels"], packed["out_aff"]
+    n = tv[:, None].float()
+    xs = [torch.relu(xcat[:, r0:r1, :cf].float() * oa[0] + oa[1])
+          * mask[:, r0:r1] for r0, r1 in ranges]
+    total = xs[0].sum(1)
+    for x in xs[1:]:
+        total = total + x.sum(1)
+    mean = total / n
+    sq = (((xs[0] - mean[:, None]) ** 2) * mask[:, ranges[0][0]:ranges[0][1]]).sum(1)
+    for (r0, r1), x in zip(ranges[1:], xs[1:]):
+        sq = sq + (((x - mean[:, None]) ** 2) * mask[:, r0:r1]).sum(1)
+    return tk._unbias(torch.cat([mean, torch.sqrt(sq / n)], 1), tv)
+
+
+SPLIT_TVALIDS = {298: [149, 77, 1], 398: [199, 150, 1], 1598: [799, 433, 1]}
+_split_refs = {}
+
+
+def _split_case(setup, t_raw):
+    """FCM output (b3) and the plain version's stats for ``t_raw``."""
+    if t_raw not in _split_refs:
+        _, tm, packed = setup
+        x = torch.from_numpy(np.random.RandomState(t_raw).randn(
+            3, t_raw, 80).astype(np.float32))
+        with torch.no_grad():
+            fcm = tm.FCM_0(x)
+        _split_refs[t_raw] = (fcm, tk.trunk_stats_reference(
+            packed, fcm, SPLIT_TVALIDS[t_raw]))
+    return _split_refs[t_raw]
+
+
+@pytest.mark.parametrize("t_raw", [298, 398, 1598])
+@pytest.mark.parametrize("cs", [1, 2, 4, 8])
+def test_emulated_cluster_split_matches_plain_version(setup, t_raw, cs):
+    _, _, packed = setup
+    fcm, ref = _split_case(setup, t_raw)
+    got = _emulate_split(packed, fcm, SPLIT_TVALIDS[t_raw], cs)
+    ref, got = ref.numpy(), got.numpy()
+    assert np.isfinite(got).all() and got.shape == ref.shape
+    if cs == 1:
+        assert rel_err(ref, got) < 1e-6
+    else:
+        assert cos_min(ref, got) > 0.99999
+        assert rel_err(ref, got) < 1e-3

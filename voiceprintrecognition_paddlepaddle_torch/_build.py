@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
-plain C interface, at first use, into ``build/torch_kernels/<hash>/``
+``nvcc`` compiles every ``csrc/*.cu`` file (one process per file, all
+started together) and links them into one shared library with a plain C
+interface, at first use, into ``build/torch_kernels/<hash>/``
 beside the package (a directory ``.gitignore`` lists). The hash covers
 the sources and the flags, so an edited kernel rebuilds and an unchanged
 one loads from the cache. The library is loaded with ``ctypes``; each C
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 __all__ = ["kernel_library", "check", "NVCC_FLAGS"]
 
@@ -32,8 +34,7 @@ _BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 _lock = threading.Lock()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelLibrary:
@@ -79,13 +80,25 @@ def _kernel_library():
     if not cached:
         os.makedirs(out_dir, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        nvcc = _nvcc()
+        with ThreadPoolExecutor(len(sources)) as pool:
+            procs = list(pool.map(lambda so: subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", so[1], so[0]],
+                capture_output=True, text=True), zip(sources, objs)))
+        logs = [proc.stdout + proc.stderr for proc in procs]
+        link = None
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if link is None or link.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
         with open(log_path, "w", encoding="utf-8") as f:
-            f.write(proc.stdout + proc.stderr)
+            f.write("".join(logs))
         os.replace(tmp, so_path)
     seconds = time.perf_counter() - t0
     ptxas = ""

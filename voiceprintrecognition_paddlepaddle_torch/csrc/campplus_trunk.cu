@@ -24,37 +24,68 @@
 // and the transits. Each utterance needs about 12 MB of bf16 weights,
 // which stay in the 50 MB L2 and are shared by all blocks. So it is bound
 // by the tensor cores' issue rate and by the per-layer synchronisation
-// inside a block, not by device memory.
+// inside a block, not by device memory; and a block works through its
+// rows one 64-row chunk at a time, so its time grows with its rows.
 //
-// Design: one thread block (8 warps) per utterance; the block loops over
-// the stem, the 52 layers, the transits and the pooling, so there is no
-// reduction across blocks. The growing concat (t16 x 1024 bf16) lives in a
+// Design: a thread-block cluster of cs blocks (8 warps each) per
+// utterance (trunk_kernel.trunk_split picks cs in {1, 2, 4, 8}). Block
+// rank k owns trunk rows [k R, min((k + 1) R, t16)), R a multiple of 16
+// and at most 400; a trailing block may own none. A short clip or a small
+// batch so spreads over more SMs; at cs = 1 (b256 x 3 s) the kernel is
+// one block per utterance, as before. The stem, each layer's wide BN-ReLU
+// and 1x1 bottleneck, the gated append and the transits are row-local: a
+// block runs them over its own rows of the concat, which lives in a
 // global workspace of two ping-pong buffers (a transit reads one and
-// writes the other). Up to the 8 s bucket (t16 <= 400), x2 (t16 x 128
-// bf16) and the local conv's output stay in shared memory, and a layer
-// runs x2, the local conv, the segment sums, the gate, then the gated
-// append. Past that (the long mode, to t16 = 1600: 462 KB of x2 alone at
-// the shared layout, against 227 KB a block), x2 lives in a per-utterance
-// global scratch (t16 x 128 bf16, 410 KB at 32 s, which stays in L2) and a
-// layer runs x2 over all rows with the segment sums taken in its
-// epilogue, then the gate, then the local conv per 16-row tile with the
-// gate, mask and append in its epilogue, so the local conv's output is
-// never stored. Products use nvcuda::wmma bf16 16x16x16 fragments with
-// fp32 accumulation: a 64-row x 128-column output chunk at a time, with A
+// writes the other), so no block touches another's concat rows. x2 (R x
+// 128 bf16) and the local conv's output stay in shared memory. Three
+// things cross blocks, through distributed shared memory (DSMEM):
+//   - the x2 halo: the dilated k3 conv (dilation <= kGuard = 2) reads
+//     the two x2 rows on each side that the neighbouring ranks own. Each
+//     block copies them into its guard rows after a cluster barrier, so
+//     the conv's wmma loads read only the block's own shared memory. At
+//     the utterance's edges the guard rows stay zero; rows past the valid
+//     count are zero in x2 anyway.
+//   - the CAM context: each block writes its partial per-segment sums of
+//     x2 (segs x 128 fp32) to its own shared memory; after the barrier
+//     every block adds the partials of all ranks in rank order (so every
+//     block gets the same sums) and computes the gate MLP only for the
+//     segments its valid rows touch.
+//   - the pooling: partial sums -> mean (every block), then partial sums
+//     of squared deviations -> biased std (rank 0 writes `out`), the
+//     two-pass form of the one-block kernel.
+// Safety of the exchange: per layer a block (1) writes x2 and its partial
+// sums, (2) arrives at and waits on a cluster barrier (release/acquire),
+// (3) reads its neighbours' edge rows and every rank's partial sums,
+// (4) arrives at the cluster barrier again and goes on with the local
+// conv, the gate and the append, and (5) waits on that second barrier
+// only at the start of the next layer, before it writes x2 and the sums
+// again. No block can overwrite what a peer still reads in (3), since it
+// cannot pass (5) before every peer arrived in (4). That is two barriers
+// per layer (about 110), the second one's wait hidden behind the layer's
+// own work; double-buffering the edge rows and sums by layer parity would
+// save one barrier a layer at the cost of a copy, and is not needed at
+// this size. Every block reaches every barrier, rows or not, and the
+// kernel ends with a barrier so no block leaves while rank 0 still reads
+// its shared memory. With cs = 1 the barriers are __syncthreads() and the
+// peers' data is the block's own, so the fp32 sums run in the one-block
+// order; with cs > 1 only the order of the fp32 partial sums changes.
+// Products use nvcuda::wmma bf16 16x16x16 fragments with fp32
+// accumulation: a 64-row x 128-column output chunk at a time, with A
 // (after its BN-ReLU transform) and B staged in shared memory in K-slices
-// of 64. The dilated conv reads x2 at shifted rows from shared memory,
-// with zero guard rows at both ends and zero rows past the valid count.
-// Rounding points follow the TPU kernel so the plain PyTorch version
-// (trunk_kernel.trunk_stats_reference) matches closely. wgmma, TMA,
-// double buffering and persistent blocks are later work.
+// of 64. Rounding points follow the TPU kernel so the plain PyTorch
+// version (trunk_kernel.trunk_stats_reference) matches closely. wgmma,
+// TMA, double buffering and the concat in shared memory are later work.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
+namespace cg = cooperative_groups;
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
@@ -63,7 +94,6 @@ struct TrunkParams {
   const int* tvalid;      // (B,) valid trunk frames, in [1, t_valid]
   float* out;             // (B, 1024) mean || biased std
   bf16* ws;               // (2, B, t16, 1024) concat ping-pong workspace
-  bf16* x2s;              // long mode: (B, t16 + 4, 128) x2 scratch, else null
   const bf16* w_stem;     // (5 * 320, 128), tap-major rows
   const float* stem_aff;  // (3, 128): conv bias, BN a, BN b
   const bf16* w_lin1;     // (sum cin, 128)
@@ -79,6 +109,8 @@ struct TrunkParams {
   const float* tbias;     // (3, 512)
   const float* out_aff;   // (2, 512)
   int B, T_raw, t_valid, t16;
+  int cs;                 // blocks of a cluster per utterance: 1, 2, 4 or 8
+  int R;                  // trunk rows a block owns: a multiple of 16, <= 400
 };
 
 namespace {
@@ -92,49 +124,77 @@ constexpr int kGuard = 2;                      // max dilation
 constexpr int kStemIn = 320, kInit = 128, kBn = 128, kGrowth = 32;
 constexpr int kHid = 64, kWide = 1024, kFinal = 512, kSeg = 100;
 constexpr int kLayers = 52;
-constexpr int kMaxT = 400;        // shared-memory x2 up to this t16
-constexpr int kMaxTLong = 1600;   // the 32 s bucket (3198 frames)
+constexpr int kMaxR = 400;        // rows a block holds in shared memory
+constexpr int kMaxT16 = 1600;     // the 32 s bucket (3198 frames)
+constexpr int kMaxCluster = 8;    // the portable cluster size
 __constant__ int kBlockLayers[3] = {12, 24, 16};
 __constant__ int kBlockDil[3] = {1, 2, 2};
 
 constexpr size_t kStageBytes =
     sizeof(bf16) * (kMC * kALd + kKC * kBLd) + sizeof(float) * kMC * kCLd;
+static_assert(kStageBytes >= sizeof(float) * 2 * kFinal, "pool partials");
 
 __host__ __device__ inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
 
 struct Smem {
-  bf16* x2;      // row 0 of x2; rows -kGuard .. t16 + kGuard - 1 exist
+  bf16* x2;      // local row 0 = the block's first row; rows -kGuard ..
+                 // R + kGuard - 1 exist (the guard rows hold the halo)
   bf16* sA;
   bf16* sB;
   float* sC;
-  float* sY;     // aliases sA/sB/sC (used in another phase); in the long
-                 // mode, per-warp (16, kYLd) staging of the local conv
-  float* segsum; // (segs, 128), segs = ceil(t_valid / 100)
-  float* ctx;    // (segs, 128), bf16-rounded values
+  float* sY;     // aliases sA/sB/sC (used in another phase): the local
+                 // conv's (R, kYLd) output; at the end the pooling's
+                 // partial sums (512) and squared deviations (512)
+  float* segsum; // (segs, 128) this block's partial segment sums
+  float* ctx;    // (segs, 128): rank-order segment totals, then bf16 ctx
   float* c1;     // (segs, 64), bf16-rounded values
   float* gate;   // (segs, 32), bf16-rounded values
 };
 
-__host__ __device__ inline size_t x2_bytes(int t16) {
-  return align128(sizeof(bf16) * (size_t)(t16 + 2 * kGuard) * kX2Ld);
+__host__ __device__ inline size_t x2_bytes(int R) {
+  return align128(sizeof(bf16) * (size_t)(R + 2 * kGuard) * kX2Ld);
 }
-__host__ __device__ inline size_t union_bytes(int t16) {
-  size_t y = sizeof(float) * (size_t)t16 * kYLd;
+__host__ __device__ inline size_t union_bytes(int R) {
+  size_t y = sizeof(float) * (size_t)R * kYLd;
   return align128(y > kStageBytes ? y : kStageBytes);
 }
 __host__ __device__ inline int seg_cap(int t_valid) { return (t_valid + kSeg - 1) / kSeg; }
 __host__ __device__ inline size_t small_bytes(int t_valid) {
   return align128(sizeof(float) * seg_cap(t_valid) * (128 + 128 + kHid + kGrowth));
 }
-// shared memory of a block: the short mode holds x2; the long mode only the
-// GEMM stage (which the per-warp local-conv staging aliases)
-__host__ __device__ inline size_t smem_bytes(bool long_mode, int t16, int t_valid) {
-  return long_mode ? align128(kStageBytes) + small_bytes(t_valid)
-                   : x2_bytes(t16) + union_bytes(t16) + small_bytes(t_valid);
+// shared memory of a block: x2, the GEMM stage (which the local conv's
+// output and the pooling partials alias) and the CAM segment arrays
+__host__ __device__ inline size_t smem_bytes(int R, int t_valid) {
+  return x2_bytes(R) + union_bytes(R) + small_bytes(t_valid);
 }
 
 __device__ inline float bfr(float v) {  // round to bf16 and back
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Split cluster barrier (all threads of all blocks of the cluster):
+// arrive releases this thread's writes (shared, DSMEM and global), wait
+// acquires the writes of every thread that arrived before.
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// a barrier over the blocks of one utterance
+__device__ inline void utt_sync(int cs) {
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+}
+// `p` (this block's shared memory) as it lies in block `rank` of the
+// cluster; the block's own pointer when the cluster is one block
+template <class T>
+__device__ inline T* peer(T* p, int rank, int cs) {
+  return cs > 1 ? cg::this_cluster().map_shared_rank(p, rank) : p;
 }
 
 // relu(bf16(bf16(x * a) + b)) on 8 bf16 lanes
@@ -167,14 +227,15 @@ struct StemLoader {
 };
 
 // A operand of a 1x1 conv over the concat: the wide BN-ReLU of xcat.
-// xcat is written inside this kernel, so it is read with plain loads.
+// xcat is written inside this kernel, so it is read with plain loads; rows
+// from `rend` on belong to another block (or to none) and read as zero.
 struct WideLoader {
   const bf16* xcat;  // this utterance's (t16, 1024)
   const bf16* a;     // (1024,)
   const bf16* b;     // (1024,)
-  int t16;
+  int rend;
   __device__ uint4 operator()(int r, int k) const {
-    if (r >= t16) return make_uint4(0, 0, 0, 0);
+    if (r >= rend) return make_uint4(0, 0, 0, 0);
     const uint4 xv = *reinterpret_cast<const uint4*>(xcat + (size_t)r * kWide + k);
     const uint4 av = __ldg(reinterpret_cast<const uint4*>(a + k));
     const uint4 bv = __ldg(reinterpret_cast<const uint4*>(b + k));
@@ -228,57 +289,52 @@ __device__ void gemm_chunk(const LoadA& load_a, int m0, int K,
   __syncthreads();
 }
 
-// kLong: x2 in the global scratch p.x2s (row stride 128) instead of shared
-// memory (row stride kX2Ld); see the header for the order of a layer's
-// phases in each mode.
-template <bool kLong>
 __global__ void __launch_bounds__(kThreads)
 campplus_trunk_kernel(TrunkParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kX2L = kLong ? kBn : kX2Ld;     // x2 row stride
-  const int t16 = p.t16;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.x;
+  const int t16 = p.t16, cs = p.cs, R = p.R;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int b = blockIdx.x / cs, rank = blockIdx.x % cs;
   const int segs = seg_cap(p.t_valid);
   Smem s;
   {
     unsigned char* q = smem_raw;
-    if (kLong) {
-      s.x2 = p.x2s + ((size_t)b * (t16 + 2 * kGuard) + kGuard) * kX2L;
-    } else {
-      s.x2 = reinterpret_cast<bf16*>(q) + kGuard * kX2L;
-      q += x2_bytes(t16);
-    }
+    s.x2 = reinterpret_cast<bf16*>(q) + kGuard * kX2Ld;
+    q += x2_bytes(R);
     s.sA = reinterpret_cast<bf16*>(q);
     s.sB = s.sA + kMC * kALd;
     s.sC = reinterpret_cast<float*>(s.sB + kKC * kBLd);
     s.sY = reinterpret_cast<float*>(q);
-    q += kLong ? align128(kStageBytes) : union_bytes(t16);
+    q += union_bytes(R);
     s.segsum = reinterpret_cast<float*>(q);
     s.ctx = s.segsum + segs * 128;
     s.c1 = s.ctx + segs * 128;
     s.gate = s.c1 + segs * kHid;
   }
   const int tv = min(max(p.tvalid[b], 1), p.t_valid);
+  // this block's rows [r0, r1) and valid rows [r0, rv)
+  const int r0 = min(rank * R, t16), r1 = min(r0 + R, t16), nr = r1 - r0;
+  const int rv = max(r0, min(r1, tv));
   const size_t buf_stride = (size_t)p.B * t16 * kWide;
   bf16* bufs[2] = {p.ws + (size_t)b * t16 * kWide,
                    p.ws + buf_stride + (size_t)b * t16 * kWide};
 
-  // zero guard rows of x2 (never written afterwards)
-  for (int i = tid; i < kGuard * kX2L; i += kThreads) {
-    s.x2[i - kGuard * kX2L] = __float2bfloat16_rn(0.f);
-    s.x2[(size_t)t16 * kX2L + i] = __float2bfloat16_rn(0.f);
+  // zero guard rows of x2 (before row 0 and after row nr - 1); those a
+  // neighbour feeds are rewritten per layer
+  for (int i = tid; i < kGuard * kX2Ld; i += kThreads) {
+    s.x2[i - kGuard * kX2Ld] = __float2bfloat16_rn(0.f);
+    s.x2[(size_t)nr * kX2Ld + i] = __float2bfloat16_rn(0.f);
   }
 
   // ---- stem: k5 s2 conv 320 -> 128, BN-ReLU, mask -> concat[:, :128] ----
   {
     const StemLoader ld{p.x + (size_t)b * p.T_raw * kStemIn, p.T_raw};
     bf16* X = bufs[0];
-    for (int m0 = 0; m0 < t16; m0 += kMC) {
+    for (int m0 = r0; m0 < r1; m0 += kMC) {
       gemm_chunk(ld, m0, 5 * kStemIn, p.w_stem, kInit, 0, s);
       for (int i = tid; i < kMC * kInit; i += kThreads) {
         const int r = m0 + i / kInit, c = i % kInit;
-        if (r >= t16) continue;
+        if (r >= r1) continue;
         float v = s.sC[(i / kInit) * kCLd + c] + p.stem_aff[c];
         v = fmaxf(v * p.stem_aff[kInit + c] + p.stem_aff[2 * kInit + c], 0.f);
         X[(size_t)r * kWide + c] = __float2bfloat16_rn(r < tv ? v : 0.f);
@@ -290,6 +346,9 @@ campplus_trunk_kernel(TrunkParams p) {
   int cur = 0, layer = 0, c_in = kInit;
   size_t lin1_off = 0;
   const int nseg = (tv + kSeg - 1) / kSeg;
+  // the segments this block's valid rows touch: [sg_lo, sg_lo + nsg_own)
+  const int sg_lo = r0 / kSeg;
+  const int nsg_own = rv > r0 ? (rv - 1) / kSeg - sg_lo + 1 : 0;
   for (int blk = 0; blk < 3; ++blk) {
     const int n_layers = kBlockLayers[blk], dil = kBlockDil[blk];
     bf16* X = bufs[cur];
@@ -299,92 +358,101 @@ campplus_trunk_kernel(TrunkParams p) {
       const float* la = p.lin1_aff + (size_t)layer * 3 * kBn;
       const float* cb = p.cam_bias + (size_t)layer * 128;
 
-      // 1x1 bottleneck cin -> 128 over the wide BN-ReLU, then BN-ReLU, mask.
-      // The long mode also sums each 100-frame segment of the bf16 x2 here.
-      if (kLong)
-        for (int i = tid; i < segs * kBn; i += kThreads) s.segsum[i] = 0.f;
-      const WideLoader ld{X, wab, wab + kWide, t16};
-      for (int m0 = 0; m0 < t16; m0 += kMC) {
+      // peers have read this block's x2 edges and partial sums of the
+      // previous layer (their arrive after the reads, below)
+      if (cs > 1 && layer > 0) cluster_wait();
+
+      // 1x1 bottleneck cin -> 128 over the wide BN-ReLU, then BN-ReLU, mask
+      const WideLoader ld{X, wab, wab + kWide, r1};
+      for (int m0 = r0; m0 < r1; m0 += kMC) {
         gemm_chunk(ld, m0, cin, p.w_lin1 + lin1_off * kBn, kBn, 0, s);
         for (int i = tid; i < kMC * kBn; i += kThreads) {
           const int r = m0 + i / kBn, c = i % kBn;
-          if (r >= t16) continue;
+          if (r >= r1) continue;
           float v = s.sC[(i / kBn) * kCLd + c] + la[c];
           v = fmaxf(v * la[kBn + c] + la[2 * kBn + c], 0.f);
-          const bf16 vb = __float2bfloat16_rn(r < tv ? v : 0.f);
-          s.x2[(size_t)r * kX2L + c] = vb;
-          if (kLong) s.sC[(i / kBn) * kCLd + c] = __bfloat162float(vb);
-        }
-        if (kLong) {
-          __syncthreads();
-          if (tid < kBn) {
-            const int r1 = min(m0 + kMC, tv);
-            int sg = m0 / kSeg;
-            float acc = 0.f;
-            for (int r = m0; r < r1; ++r) {
-              if (r / kSeg != sg) {
-                s.segsum[sg * kBn + tid] += acc;
-                acc = 0.f;
-                sg = r / kSeg;
-              }
-              acc += s.sC[(r - m0) * kCLd + tid];
-            }
-            if (r1 > m0) s.segsum[sg * kBn + tid] += acc;
-          }
+          s.x2[(size_t)(r - r0) * kX2Ld + c] = __float2bfloat16_rn(r < tv ? v : 0.f);
         }
         __syncthreads();
       }
       lin1_off += cin;
+
+      // CAM context: this block's partial per-segment sums of x2 over its
+      // valid rows (zero for segments it does not touch)
+      if (tid < kBn) {
+        for (int sg = 0; sg < nseg; ++sg) {
+          const int lo = max(sg * kSeg, r0), hi = min((sg + 1) * kSeg, rv);
+          float acc = 0.f;
+          for (int r = lo; r < hi; ++r)
+            acc += __bfloat162float(s.x2[(size_t)(r - r0) * kX2Ld + tid]);
+          s.segsum[sg * kBn + tid] = acc;
+        }
+      }
+      utt_sync(cs);  // every block's x2 and partial sums are visible
+
+      // totals of all ranks' partial sums, in rank order; with one block
+      // the block's own sums are the totals
+      const float* tot_seg = s.segsum;
+      if (cs > 1) {
+        // halo: the neighbours' edge rows into this block's guard rows
+        if (tid < 64) {
+          const int right = tid >> 5, row = (tid >> 4) & 1, col = (tid & 15) * 8;
+          // rank - 1 owns a full R rows whenever this block owns any;
+          // rank + 1 owns >= 16 rows whenever r1 < t16
+          if (right ? r1 < t16 : rank > 0 && nr > 0) {
+            const int dst = right ? nr + row : row - kGuard;
+            const int src = right ? row : R - kGuard + row;
+            const bf16* peer_x2 = peer(s.x2, rank + (right ? 1 : -1), cs);
+            *reinterpret_cast<uint4*>(s.x2 + (ptrdiff_t)dst * kX2Ld + col) =
+                *reinterpret_cast<const uint4*>(peer_x2 + (ptrdiff_t)src * kX2Ld + col);
+          }
+        }
+        for (int i = tid; i < nseg * kBn; i += kThreads) {
+          float acc = 0.f;
+          for (int k = 0; k < cs; ++k) acc += peer(s.segsum, k, cs)[i];
+          s.ctx[i] = acc;
+        }
+        cluster_arrive();  // done reading peers; waited on at the next layer
+        __syncthreads();
+        tot_seg = s.ctx;
+      }
       const bf16* wl = p.w_local + (size_t)layer * 3 * kBn * kGrowth;
 
-      if (!kLong) {
-        // local k3 dilated conv 128 -> 32 over shifted x2 rows -> sY (fp32)
-        const int mtiles = t16 / 16;
-        for (int tile = warp; tile < mtiles * 2; tile += kWarps) {
-          const int mt = tile >> 1, nt = tile & 1;
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-          wmma::fill_fragment(acc, 0.f);
-          for (int tap = 0; tap < 3; ++tap) {
-            const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2L;
+      // local k3 dilated conv 128 -> 32 over shifted x2 rows -> sY (fp32)
+      for (int tile = warp; tile < (nr / 16) * 2; tile += kWarps) {
+        const int mt = tile >> 1, nt = tile & 1;
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+        wmma::fill_fragment(acc, 0.f);
+        for (int tap = 0; tap < 3; ++tap) {
+          const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2Ld;
 #pragma unroll
-            for (int kk = 0; kk < kBn; kk += 16) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfg;
-              wmma::load_matrix_sync(af, arow + kk, kX2L);
-              wmma::load_matrix_sync(bfg, wl + (size_t)(tap * kBn + kk) * kGrowth + nt * 16,
-                                     kGrowth);
-              wmma::mma_sync(acc, af, bfg, acc);
-            }
-          }
-          wmma::store_matrix_sync(s.sY + mt * 16 * kYLd + nt * 16, acc, kYLd,
-                                  wmma::mem_row_major);
-        }
-
-        // CAM context: per-segment sums of x2 over the valid frames
-        if (tid < kBn) {
-          for (int sg = 0; sg < nseg; ++sg) {
-            const int r1 = min((sg + 1) * kSeg, tv);
-            float acc = 0.f;
-            for (int r = sg * kSeg; r < r1; ++r)
-              acc += __bfloat162float(s.x2[(size_t)r * kX2L + tid]);
-            s.segsum[sg * kBn + tid] = acc;
+          for (int kk = 0; kk < kBn; kk += 16) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfg;
+            wmma::load_matrix_sync(af, arow + kk, kX2Ld);
+            wmma::load_matrix_sync(bfg, wl + (size_t)(tap * kBn + kk) * kGrowth + nt * 16,
+                                   kGrowth);
+            wmma::mma_sync(acc, af, bfg, acc);
           }
         }
-        __syncthreads();
+        wmma::store_matrix_sync(s.sY + mt * 16 * kYLd + nt * 16, acc, kYLd,
+                                wmma::mem_row_major);
       }
+
+      // ctx of the segments this block needs (in place over the totals)
       if (tid < kBn) {
         float tot = 0.f;
-        for (int sg = 0; sg < nseg; ++sg) tot += s.segsum[sg * kBn + tid];
+        for (int sg = 0; sg < nseg; ++sg) tot += tot_seg[sg * kBn + tid];
         const float mean = tot / (float)tv;
-        for (int sg = 0; sg < nseg; ++sg) {
+        for (int sg = sg_lo; sg < sg_lo + nsg_own; ++sg) {
           const int cnt = min((sg + 1) * kSeg, tv) - sg * kSeg;
-          s.ctx[sg * kBn + tid] = bfr(mean + s.segsum[sg * kBn + tid] / (float)cnt);
+          s.ctx[sg * kBn + tid] = bfr(mean + tot_seg[sg * kBn + tid] / (float)cnt);
         }
       }
       __syncthreads();
       // 128 -> 64, ReLU
-      for (int i = tid; i < nseg * kHid; i += kThreads) {
-        const int sg = i / kHid, j = i % kHid;
+      for (int i = tid; i < nsg_own * kHid; i += kThreads) {
+        const int sg = sg_lo + i / kHid, j = i % kHid;
         const bf16* w1 = p.w_cam1 + (size_t)layer * kBn * kHid;
         float acc = 0.f;
         for (int c = 0; c < kBn; ++c)
@@ -393,8 +461,8 @@ campplus_trunk_kernel(TrunkParams p) {
       }
       __syncthreads();
       // 64 -> 32, sigmoid
-      for (int i = tid; i < nseg * kGrowth; i += kThreads) {
-        const int sg = i / kGrowth, j = i % kGrowth;
+      for (int i = tid; i < nsg_own * kGrowth; i += kThreads) {
+        const int sg = sg_lo + i / kGrowth, j = i % kGrowth;
         const bf16* w2 = p.w_cam2 + (size_t)layer * kHid * kGrowth;
         float acc = 0.f;
         for (int c = 0; c < kHid; ++c)
@@ -404,50 +472,14 @@ campplus_trunk_kernel(TrunkParams p) {
       }
       __syncthreads();
 
+      // gate the local conv, mask, append 32 channels to the concat
       const int c0 = c_in + li * kGrowth;
-      if (!kLong) {
-        // gate the local conv, mask, append 32 channels to the concat
-        for (int i = tid; i < t16 * kGrowth; i += kThreads) {
-          const int r = i / kGrowth, j = i % kGrowth;
-          float v = 0.f;
-          if (r < tv)
-            v = (s.sY[r * kYLd + j] + cb[j]) * s.gate[(r / kSeg) * kGrowth + j];
-          X[(size_t)r * kWide + c0 + j] = __float2bfloat16_rn(v);
-        }
-      } else {
-        // local k3 dilated conv 128 -> 32 per 16-row tile from the x2
-        // scratch, gated, masked and appended to the concat in its epilogue
-        float* st = s.sY + warp * 16 * kYLd;
-        for (int mt = warp; mt < t16 / 16; mt += kWarps) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-          wmma::fill_fragment(acc[0], 0.f);
-          wmma::fill_fragment(acc[1], 0.f);
-          for (int tap = 0; tap < 3; ++tap) {
-            const bf16* arow = s.x2 + (ptrdiff_t)(mt * 16 + (tap - 1) * dil) * kX2L;
-#pragma unroll
-            for (int kk = 0; kk < kBn; kk += 16) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b0, b1;
-              wmma::load_matrix_sync(af, arow + kk, kX2L);
-              const bf16* wrow = wl + (size_t)(tap * kBn + kk) * kGrowth;
-              wmma::load_matrix_sync(b0, wrow, kGrowth);
-              wmma::load_matrix_sync(b1, wrow + 16, kGrowth);
-              wmma::mma_sync(acc[0], af, b0, acc[0]);
-              wmma::mma_sync(acc[1], af, b1, acc[1]);
-            }
-          }
-          wmma::store_matrix_sync(st, acc[0], kYLd, wmma::mem_row_major);
-          wmma::store_matrix_sync(st + 16, acc[1], kYLd, wmma::mem_row_major);
-          __syncwarp();
-          for (int i = lane; i < 16 * kGrowth; i += 32) {
-            const int r = mt * 16 + i / kGrowth, j = i % kGrowth;
-            float v = 0.f;
-            if (r < tv)
-              v = (st[(i / kGrowth) * kYLd + j] + cb[j]) * s.gate[(r / kSeg) * kGrowth + j];
-            X[(size_t)r * kWide + c0 + j] = __float2bfloat16_rn(v);
-          }
-          __syncwarp();
-        }
+      for (int i = tid; i < nr * kGrowth; i += kThreads) {
+        const int r = i / kGrowth, j = i % kGrowth, g = r0 + r;
+        float v = 0.f;
+        if (g < tv)
+          v = (s.sY[r * kYLd + j] + cb[j]) * s.gate[(g / kSeg) * kGrowth + j];
+        X[(size_t)g * kWide + c0 + j] = __float2bfloat16_rn(v);
       }
       __syncthreads();
     }
@@ -459,13 +491,13 @@ campplus_trunk_kernel(TrunkParams p) {
     const bf16* wt = blk == 0 ? p.w_t0 : (blk == 1 ? p.w_t1 : p.w_t2);
     const float* tb = p.tbias + (size_t)blk * kFinal;
     bf16* Y = bufs[cur ^ 1];
-    const WideLoader ld{X, wab, wab + kWide, t16};
-    for (int m0 = 0; m0 < t16; m0 += kMC) {
+    const WideLoader ld{X, wab, wab + kWide, r1};
+    for (int m0 = r0; m0 < r1; m0 += kMC) {
       for (int n0 = 0; n0 < cw / 2; n0 += kNC) {
         gemm_chunk(ld, m0, cw, wt, cw / 2, n0, s);
         for (int i = tid; i < kMC * kNC; i += kThreads) {
           const int r = m0 + i / kNC, c = i % kNC;
-          if (r >= t16) continue;
+          if (r >= r1) continue;
           const float v = s.sC[(i / kNC) * kCLd + c] + tb[n0 + c];
           Y[(size_t)r * kWide + n0 + c] = __float2bfloat16_rn(r < tv ? v : 0.f);
         }
@@ -475,43 +507,123 @@ campplus_trunk_kernel(TrunkParams p) {
     cur ^= 1;
     c_in = cw / 2;
   }
+  if (cs > 1) cluster_wait();  // the last layer's second barrier
 
-  // out BN-ReLU (fp32) + mean || biased std over the valid frames
+  // out BN-ReLU (fp32) + mean || biased std over the valid frames:
+  // partial sums -> mean in every block, then partial squared deviations
+  // -> std in rank 0
   const bf16* Xf = bufs[cur];
+  float* psum = s.sY;
+  float* psq = s.sY + kFinal;
   for (int c = tid; c < kFinal; c += kThreads) {
     const float a = p.out_aff[c], bb = p.out_aff[kFinal + c];
     float sum = 0.f;
-    for (int r = 0; r < tv; ++r)
+    for (int r = r0; r < rv; ++r)
       sum += fmaxf(__bfloat162float(Xf[(size_t)r * kWide + c]) * a + bb, 0.f);
+    psum[c] = sum;
+  }
+  utt_sync(cs);
+  for (int c = tid; c < kFinal; c += kThreads) {
+    const float a = p.out_aff[c], bb = p.out_aff[kFinal + c];
+    float sum = 0.f;
+    for (int k = 0; k < cs; ++k) sum += peer(psum, k, cs)[c];
     const float mean = sum / (float)tv;
     float sq = 0.f;
-    for (int r = 0; r < tv; ++r) {
+    for (int r = r0; r < rv; ++r) {
       const float d =
           fmaxf(__bfloat162float(Xf[(size_t)r * kWide + c]) * a + bb, 0.f) - mean;
       sq += d * d;
     }
-    p.out[(size_t)b * 2 * kFinal + c] = mean;
-    p.out[(size_t)b * 2 * kFinal + kFinal + c] = sqrtf(sq / (float)tv);
+    psq[c] = sq;
+    if (rank == 0) p.out[(size_t)b * 2 * kFinal + c] = mean;
+  }
+  utt_sync(cs);
+  if (rank == 0) {
+    for (int c = tid; c < kFinal; c += kThreads) {
+      float sq = 0.f;
+      for (int k = 0; k < cs; ++k) sq += peer(psq, k, cs)[c];
+      p.out[(size_t)b * 2 * kFinal + kFinal + c] = sqrtf(sq / (float)tv);
+    }
+  }
+  // no block leaves while rank 0 still reads its shared memory
+  if (cs > 1) {
+    cluster_arrive();
+    cluster_wait();
   }
 }
 
-template <bool kLong>
-cudaError_t launch(const TrunkParams& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kLong, p.t16, p.t_valid);
-  cudaError_t err = cudaFuncSetAttribute(
-      campplus_trunk_kernel<kLong>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// the launch configuration of `cs`-block clusters over B utterances
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+// The kernel's dynamic shared-memory limit is one setting per device for
+// the whole process. Setting it per launch to that launch's size would let
+// a thread lower it between another thread's set and launch (a server
+// launches b1 x 398 and b32 x 1598 from many threads), so each device gets
+// it once, under a lock, at the largest size any launch asks for. A launch
+// still asks for its own size, and occupancy follows that.
+constexpr int kMaxDevices = 64;
+
+cudaError_t allow_max_smem() {
+  static std::mutex mu;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  campplus_trunk_kernel<kLong><<<p.B, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(mu);
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(campplus_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes(kMaxR, kMaxT16));
+  done[dev] = err == cudaSuccess;
+  return err;
+}
+
+cudaError_t configure(Launch& l, int B, int cs, int R, int t_valid, cudaStream_t stream) {
+  const size_t smem = smem_bytes(R, t_valid);
+  cudaError_t err = allow_max_smem();
+  if (err != cudaSuccess) return err;
+  l.cfg = cudaLaunchConfig_t{};
+  l.cfg.gridDim = dim3(B * cs);
+  l.cfg.blockDim = dim3(kThreads);
+  l.cfg.dynamicSmemBytes = smem;
+  l.cfg.stream = stream;
+  l.attr[0].id = cudaLaunchAttributeClusterDimension;
+  l.attr[0].val.clusterDim.x = cs;
+  l.attr[0].val.clusterDim.y = 1;
+  l.attr[0].val.clusterDim.z = 1;
+  l.cfg.attrs = l.attr;
+  l.cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+bool bad_split(int cs, int R, int t_valid) {
+  return cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) != 0 || R < 16 || R % 16 != 0 ||
+         R > kMaxR || t_valid <= 0 || t_valid > kMaxT16;
 }
 
 }  // namespace
 
+// How many clusters of `cs` blocks of R rows can be resident at once
+// (cudaOccupancyMaxActiveClusters); 0 means such a launch cannot run.
+extern "C" int vpr_campplus_trunk_max_clusters(int cs, int R, int t_valid, int* n) {
+  if (bad_split(cs, R, t_valid)) return (int)cudaErrorInvalidValue;
+  Launch l;
+  cudaError_t err = configure(l, 1, cs, R, t_valid, 0);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(n, (const void*)campplus_trunk_kernel, &l.cfg);
+}
+
 extern "C" int vpr_campplus_trunk(TrunkParams p, void* stream) {
-  if (p.B <= 0 || p.t_valid <= 0 || p.t_valid > kMaxTLong || p.t16 % 16 != 0 ||
-      p.t16 < p.t_valid || p.t16 > kMaxTLong)
+  if (p.B <= 0 || bad_split(p.cs, p.R, p.t_valid) || p.t16 % 16 != 0 ||
+      p.t16 < p.t_valid || p.t16 > kMaxT16 || (long long)p.R * p.cs < p.t16)
     return (int)cudaErrorInvalidValue;
-  if (p.t16 <= kMaxT) return (int)launch<false>(p, (cudaStream_t)stream);
-  if (p.x2s == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch<true>(p, (cudaStream_t)stream);
+  Launch l;
+  cudaError_t err = configure(l, p.B, p.cs, p.R, p.t_valid, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&l.cfg, campplus_trunk_kernel, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

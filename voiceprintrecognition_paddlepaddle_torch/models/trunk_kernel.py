@@ -21,9 +21,12 @@ unbiased std over each utterance's valid frames.
   batches.
 
 The trunk kernel serves up to ``MAX_T_RAW`` frames (the 32 s bucket,
-3198 frames; ``t_valid <= 1600``). Past ``SMEM_MAX_T16`` trunk rows its
-bottleneck activations move from shared memory to a global scratch that
-the wrapper allocates.
+3198 frames; ``t_valid <= 1600``). Each utterance runs on a thread-block
+cluster of ``cs`` blocks, each owning ``R`` of its trunk rows (at most
+``SMEM_MAX_T16``, so a block's bottleneck activations fit in its shared
+memory); ``trunk_split`` picks ``(cs, R)`` from the batch, the length and
+how many clusters of each size the card holds at once, and
+``trunk_stats(..., cluster=cs)`` forces a size.
 
 Valid frames: the stem keeps ``t_valid = (T_raw - 1) // 2 + 1`` frames; a
 padded utterance with length ratio ``r`` has ``ceil(r * t_valid)`` of
@@ -43,14 +46,18 @@ from .fcm_kernel import FCM_MIN_T, fcm_fused, fcm_supported, pack_fcm
 from .layers import bn_affine
 
 __all__ = ["trunk_plan", "pack_trunk", "trunk_geometry", "tvalids_from_ratios",
+           "rows_per_block", "trunk_split", "default_split",
            "trunk_stats_reference", "trunk_stats", "campplus_embed_fast",
-           "make_campplus_masked_embed_fn", "MAX_T_RAW", "SMEM_MAX_T16"]
+           "make_campplus_masked_embed_fn", "MAX_T_RAW", "SMEM_MAX_T16",
+           "CLUSTER_SIZES"]
 
 SEG_LEN = 100           # CAM segment pooling window
 FCM_DIM = 320           # 32 channels x 80/8 frequencies
 WIDE = 1024             # widest concat (992) and transit input
 MAX_T_RAW = 3200        # 32 s bucket (3198 frames): t_valid <= 1600
-SMEM_MAX_T16 = 400      # x2 in shared memory up to here (csrc kMaxT)
+MAX_T16 = 1600          # trunk rows of the 32 s bucket (csrc kMaxT16)
+SMEM_MAX_T16 = 400      # trunk rows a block holds (csrc kMaxR)
+CLUSTER_SIZES = (1, 2, 4, 8)  # up to the portable size (csrc kMaxCluster)
 _BF16 = torch.bfloat16
 
 
@@ -156,6 +163,52 @@ def trunk_geometry(t_raw):
     return t_valid, -(-t_valid // 16) * 16
 
 
+def rows_per_block(t16, cs):
+    """``R``: ``t16`` rows over ``cs`` blocks, rounded up to 16-row tiles."""
+    return -(-t16 // (16 * cs)) * 16
+
+
+def trunk_split(b, t16, resident):
+    """``(cs, R)``: the cluster size per utterance and the rows per block
+    for ``b`` utterances of ``t16`` trunk rows, where ``resident(cs, R)``
+    is how many clusters of ``cs`` blocks of ``R`` rows the card holds at
+    once (``default_split`` asks the CUDA occupancy query).
+
+    A block's time grows with its 64-row chunks (``ceil(R / 64)``), and
+    clusters that the card cannot hold at once wait for a second wave.
+    So, of the sizes 1, 2, 4, 8 whose ``R`` fits a block's shared memory
+    (``SMEM_MAX_T16``) and, above the smallest such size, keeps at least
+    32 rows, take the one with the fewest waves x chunks, then the fewest
+    waves, then the largest."""
+    if t16 % 16 or not 16 <= t16 <= MAX_T16:
+        raise ValueError(f"t16 must be a multiple of 16 in [16, {MAX_T16}], "
+                         f"got {t16}")
+    best = None
+    for cs in CLUSTER_SIZES:
+        rows = rows_per_block(t16, cs)
+        if rows > SMEM_MAX_T16:
+            continue
+        if best is not None and rows < 32:
+            break
+        n = resident(cs, rows)
+        waves = -(-b // n) if n > 0 else float("inf")
+        key = (waves * -(-rows // 64), waves, -cs)
+        if best is None or key < best[0]:
+            best = (key, cs, rows)
+    return best[1], best[2]
+
+
+def _forced_split(cluster, t16):
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got "
+                         f"{cluster!r}")
+    rows = rows_per_block(t16, cluster)
+    if rows > SMEM_MAX_T16:
+        raise ValueError(f"cluster={cluster} leaves {rows} trunk rows per "
+                         f"block, more than the {SMEM_MAX_T16} that fit")
+    return cluster, rows
+
+
 def tvalids_from_ratios(ratios, t_valid):
     """Per-utterance valid trunk frames ``ceil(r * t_valid)`` in float32
     (JAX ``pallas_campplus.py:974-975``), clamped to ``[1, t_valid]``."""
@@ -258,67 +311,107 @@ def trunk_stats_reference(packed, fcm_out, tvalids=None):
 class _TrunkParams(ctypes.Structure):
     """Mirror of ``TrunkParams`` in ``csrc/campplus_trunk.cu``."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "tvalid", "out", "ws", "x2s", "w_stem", "stem_aff", "w_lin1",
+        "x", "tvalid", "out", "ws", "w_stem", "stem_aff", "w_lin1",
         "lin1_aff", "wide_ab", "w_local", "w_cam1", "w_cam2", "cam_bias",
         "w_t0", "w_t1", "w_t2", "tbias", "out_aff")] + [
-        (name, ctypes.c_int) for name in ("B", "T_raw", "t_valid", "t16")]
+        (name, ctypes.c_int) for name in ("B", "T_raw", "t_valid", "t16",
+                                          "cs", "R")]
 
 
 @lru_cache(maxsize=None)
-def _entry():
+def _entries():
     from .._build import kernel_library
-    fn = kernel_library().lib.vpr_campplus_trunk
+    lib = kernel_library().lib
+    fn = lib.vpr_campplus_trunk
     fn.restype = ctypes.c_int
     fn.argtypes = [_TrunkParams, ctypes.c_void_p]
-    return fn
+    occ = lib.vpr_campplus_trunk_max_clusters
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    return fn, occ
 
 
-def trunk_stats(packed, fcm_out, tvalids=None):
+def _device_index(device):
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+@lru_cache(maxsize=None)
+def _max_clusters(cs, rows, t_valid, device_index):
+    from .._build import check
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(_entries()[1](cs, rows, t_valid, ctypes.byref(n)),
+              "vpr_campplus_trunk_max_clusters")
+    return n.value
+
+
+def default_split(b, t_raw, device):
+    """``(cs, R)`` that ``trunk_stats`` takes for ``b`` utterances of
+    ``t_raw`` frames on a CUDA ``device``: ``trunk_split`` with the
+    card's resident clusters."""
+    index = _device_index(device)
+    t_valid, t16 = trunk_geometry(t_raw)
+    return trunk_split(b, t16, lambda cs, rows:
+                       _max_clusters(cs, rows, t_valid, index))
+
+
+def trunk_stats(packed, fcm_out, tvalids=None, *, cluster=None):
     """``(B, T_raw, 320) -> (B, 1024)`` mean || unbiased std.
 
     A CPU tensor runs ``trunk_stats_reference``. A CUDA tensor launches
-    the CUDA kernel (bf16 in, fp32 stats out) and adds one to
-    ``trunk_stats.launches``."""
+    the CUDA kernel (bf16 in, fp32 stats out) over clusters of
+    ``default_split`` blocks per utterance, or of ``cluster`` blocks where
+    given (one of ``CLUSTER_SIZES`` leaving at most ``SMEM_MAX_T16`` rows
+    per block, else ``ValueError``), and adds one to
+    ``trunk_stats.launches`` and to ``trunk_stats.cluster_launches[cs]``.
+    A cluster size the card cannot hold resident raises."""
     if fcm_out.ndim != 3 or fcm_out.shape[2] != FCM_DIM:
         raise ValueError(f"expected (B, T, {FCM_DIM}), got {tuple(fcm_out.shape)}")
+    b, t_raw, _ = fcm_out.shape
+    t_valid, t16 = trunk_geometry(t_raw)
+    if cluster is not None:
+        cs, rows = _forced_split(cluster, t16)
     if fcm_out.device.type == "cpu":
         return trunk_stats_reference(packed, fcm_out, tvalids)
     if fcm_out.device.type != "cuda":
         raise ValueError(f"unsupported device {fcm_out.device}")
-    b, t_raw, _ = fcm_out.shape
     if t_raw > MAX_T_RAW:
         raise ValueError(
             f"the trunk kernel serves at most {MAX_T_RAW} frames (the 32 s "
             f"bucket), got {t_raw}; longer buckets run the plain model "
             f"(predict.py)")
-    t_valid, t16 = trunk_geometry(t_raw)
     dev = fcm_out.device
+    index = _device_index(dev)
+    if cluster is None:
+        cs, rows = default_split(b, t_raw, dev)
+    if _max_clusters(cs, rows, t_valid, index) == 0:
+        raise RuntimeError(
+            f"no cluster of {cs} trunk blocks of {rows} rows fits on "
+            f"{torch.cuda.get_device_name(index)}")
     x = fcm_out.to(_BF16).contiguous()
     tv = _tvalid_tensor(tvalids, b, t_valid, dev)
     out = torch.empty((b, 2 * 512), dtype=torch.float32, device=dev)
     ws = torch.empty((2, b, t16, WIDE), dtype=_BF16, device=dev)
-    # x2 scratch with two zero guard rows at each end (the kernel zeroes them)
-    x2s = (torch.empty((b, t16 + 4, 128), dtype=_BF16, device=dev)
-           if t16 > SMEM_MAX_T16 else None)
     for k, v in packed.items():
         if v.device != dev or not v.is_contiguous():
             raise ValueError(f"packed[{k!r}] must be contiguous on {dev}")
     p = _TrunkParams(
         x.data_ptr(), tv.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        None if x2s is None else x2s.data_ptr(),
         *(packed[k].data_ptr() for k in (
             "w_stem", "stem_aff", "w_lin1", "lin1_aff", "wide_ab", "w_local",
             "w_cam1", "w_cam2", "cam_bias", "w_t0", "w_t1", "w_t2", "tbias",
             "out_aff")),
-        b, t_raw, t_valid, t16)
+        b, t_raw, t_valid, t16, cs, rows)
     from .._build import check
-    check(_entry()(p, torch.cuda.current_stream(dev).cuda_stream),
+    check(_entries()[0](p, torch.cuda.current_stream(dev).cuda_stream),
           "vpr_campplus_trunk")
     trunk_stats.launches += 1
+    trunk_stats.cluster_launches[cs] = trunk_stats.cluster_launches.get(cs, 0) + 1
     return _unbias(out, tv)
 
 
 trunk_stats.launches = 0
+trunk_stats.cluster_launches = {}
 
 
 @torch.no_grad()

@@ -28,12 +28,13 @@ own process. Data-parallel serving over several cards is not ported yet.
 """
 
 import argparse
+import collections
 import functools
 import json
 import os
+import queue
 import struct
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -166,7 +167,7 @@ def make_handler(predictor, batcher=None):
 
 
 class ServingHTTPServer(ThreadingHTTPServer):
-    """``ThreadingHTTPServer`` that hands each request to a pool of
+    """``ThreadingHTTPServer`` that hands each request to one of at most
     ``workers`` long-lived threads instead of a new thread per request,
     with a listen backlog for many concurrent clients (the stdlib default
     of 5 resets connections past that).
@@ -174,23 +175,94 @@ class ServingHTTPServer(ThreadingHTTPServer):
     Long-lived threads matter on the card: the first cuDNN call in a
     thread creates its cuDNN handle, and the plain FCM (buckets under 1000
     frames) then takes about 31 ms instead of 2 ms (NVIDIA H100 80GB HBM3,
-    700 W). A new thread per request paid that on every request."""
+    700 W). A new thread per request paid that on every request.
+
+    A request goes to the thread that went idle last; a thread is idle
+    again once its handler has answered, before it closes the connection.
+    A request that finds every thread busy waits in arrival order, and
+    takes the first thread that frees; only if none frees within
+    ``spawn_after_s`` (and fewer than ``workers`` exist) do new threads
+    start. So a client's next request, which can arrive before the thread
+    that answered it is free again, finds that thread (a
+    ``ThreadPoolExecutor`` started another one then), and a burst of
+    concurrent requests still grows the pool at once."""
 
     request_queue_size = 256
     workers = 64
+    spawn_after_s = 0.01
 
     def __init__(self, server_address, handler):
         super().__init__(server_address, handler)
-        self._pool = ThreadPoolExecutor(max_workers=self.workers,
-                                        thread_name_prefix="serve")
+        self._lock = threading.Lock()
+        self._idle = []                      # inboxes of idle threads
+        self._waiting = collections.deque()  # requests no thread took yet
+        self._serving = []
+        self._timer = None
+        self._closing = False
 
     def process_request(self, request, client_address):
-        self._pool.submit(self.process_request_thread, request,
-                          client_address)
+        with self._lock:
+            if self._idle:
+                self._idle.pop().put((request, client_address))
+                return
+            self._waiting.append((request, client_address))
+            if not self._serving:
+                self._start_threads()
+            elif len(self._serving) < self.workers and self._timer is None:
+                self._timer = threading.Timer(self.spawn_after_s,
+                                              self._spawn_for_waiting)
+                self._timer.daemon = True
+                self._timer.start()
+
+    def _spawn_for_waiting(self):
+        with self._lock:
+            self._timer = None
+            self._start_threads()
+
+    def _start_threads(self):
+        """A new thread for each waiting request, up to ``workers``; the
+        caller holds the lock."""
+        while (self._waiting and len(self._serving) < self.workers
+               and not self._closing):
+            inbox = queue.SimpleQueue()
+            inbox.put(self._waiting.popleft())
+            thread = threading.Thread(
+                target=self._serve_inbox, args=(inbox,),
+                name=f"serve_{len(self._serving)}", daemon=True)
+            self._serving.append(thread)
+            thread.start()
+
+    def _serve_inbox(self, inbox):
+        while (job := inbox.get()) is not None:
+            request, client_address = job
+            try:
+                self.finish_request(request, client_address)
+            except Exception:  # noqa: BLE001 - as ThreadingMixIn does
+                self.handle_error(request, client_address)
+            finally:
+                with self._lock:
+                    if self._waiting:
+                        inbox.put(self._waiting.popleft())
+                    elif self._closing:
+                        inbox.put(None)
+                    else:
+                        self._idle.append(inbox)
+                self.shutdown_request(request)
 
     def server_close(self):
+        """Close the socket, let the threads finish the requests they hold
+        and the waiting ones, and join them."""
         super().server_close()
-        self._pool.shutdown(wait=True)
+        with self._lock:
+            self._closing = True
+            if self._timer is not None:
+                self._timer.cancel()
+            for inbox in self._idle:
+                inbox.put(None)
+            self._idle.clear()
+            threads = list(self._serving)
+        for thread in threads:
+            thread.join()
 
 
 def warmup(predictor, seconds):
