@@ -32,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
 7. times    CUDA-event times of each kernel against its plain version and
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
             and b32 x 16 s; the FCM kernel also against the model's plain
-            FCM (cuDNN), and the stages of the b32 x 16 s embed; the trunk
+            FCM (cuDNN), there and at b1 x 398 and b64 x 398 (below
+            FCM_MIN_T), with the ms of each of its launches beside the
+            bytes the design moves (GB/s, TFLOP/s, the byte floor); the
+            stages of the b32 x 16 s embed; the trunk
             at b256 x 298, b64 x 398, b1 x 398 and b32 x 1598 frames with
             its default cluster split against the smallest cluster that
             shape allows, in turns; every cluster size at the serving and
@@ -224,6 +227,29 @@ def smallest_cluster(tk, t16):
                 if tk.rows_per_block(t16, c) <= tk.SMEM_MAX_T16)
 
 
+def check_fcm(fkm, packed_fcm, rng, dev):
+    """Phase 4: the FCM kernel against its plain version (both bf16);
+    returns the largest max |d|."""
+    fcm_max = 0.0
+    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198)):
+        x = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
+        got = fkm.fcm_fused(packed_fcm, x)
+        ref = fkm.fcm_reference(packed_fcm, x)
+        torch.cuda.synchronize()
+        g, r = got.double(), ref.double()
+        d = float((g - r).abs().max())
+        scale = max(1.0, float(r.abs().max()))
+        c = float((g * r).sum() / (g.norm() * r.norm()))
+        log(f"[fcm] b{b} x {t} frames: shape {tuple(got.shape)} cos={c:.8f} "
+            f"max|d|={d:.3e} max|d|/scale={d / scale:.3e} (bars cos > 0.9999, "
+            f"max|d|/scale < 5e-2)")
+        if not (got.shape == (b, t, 320) and torch.isfinite(g).all()
+                and c > 0.9999 and d / scale < 5e-2):
+            raise AssertionError(f"FCM kernel disagrees (b{b} x {t})")
+        fcm_max = max(fcm_max, d)
+    return fcm_max
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -285,6 +311,82 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ms(xs):
+    return sum(xs) / len(xs)
+
+
+def turns(plain, kernel, iters, plain_iters=None):
+    """plain, kernel, kernel, plain: two CUDA-event means each."""
+    pi = plain_iters or iters
+    p = [cuda_ms(plain, pi, 1)]
+    k = [cuda_ms(kernel, iters) for _ in range(2)]
+    p.append(cuda_ms(plain, pi, 1))
+    return k, p
+
+
+def fcm_split(fkm, packed_fcm, fx, occ):
+    """The ms of each launch of the FCM kernel (CUDA events around each,
+    a mean of 10 runs) beside the bytes its design moves and the
+    operations it does: rows of {name, ms, bytes, gb_per_s, tflop_per_s,
+    floor_ms, items, grid}, floor_ms being the bytes over the HBM3 peak,
+    items and grid those of the persistent conv launches (the grids the
+    wrapper passes to the kernel, from ``occ``: fcm_occupancy)."""
+    b, t, _ = fx.shape
+    times = fkm.fcm_stage_times(packed_fcm, fx, 10)
+    items = [None] + [fkm.fcm_conv_items(b, t, f_out)
+                      for _, _, f_out, *_ in fkm.FCM_LAUNCHES[1:]]
+    grids = [None] + fkm.fcm_grids(b, t, occ)
+    rows = []
+    for c, n_items, grid in zip(fkm.fcm_launch_costs(b, t), items, grids):
+        ms_ = times[c["name"]]
+        rows.append({"name": c["name"], "ms": ms_, "bytes": c["bytes"],
+                     "gb_per_s": c["bytes"] / ms_ / 1e6,
+                     "tflop_per_s": c["flop"] / ms_ / 1e9,
+                     "floor_ms": c["bytes"] / PEAK_BYTES * 1e3,
+                     "items": n_items, "grid": grid})
+    return rows
+
+
+def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
+    """Phase 7, the FCM. For each of ``feats`` ({name: (B, T, 80)}): the
+    kernel against its plain version (fcm_reference) in turns, the model's
+    plain FCM (cuDNN), and the split by launch. At b1 x 398 and b64 x 398
+    (one /embedding and a micro-batch, below FCM_MIN_T): the kernel
+    against model.FCM_0 in turns."""
+    occ = fkm.fcm_occupancy(dev)
+    log(f"[fcm] {card}: conv kernel resident blocks per SM and SM count "
+        f"{occ}")
+    out = {"occupancy": occ}
+    for name, fx in feats.items():
+        k, p = turns(lambda: fkm.fcm_reference(packed_fcm, fx),
+                     lambda: fkm.fcm_fused(packed_fcm, fx), 10, 3)
+        cud = [cuda_ms(lambda: model.FCM_0(fx), 3, 1) for _ in range(2)]
+        split = fcm_split(fkm, packed_fcm, fx, occ)
+        floor = sum(r["floor_ms"] for r in split)
+        out[name] = {"ms": k, "plain_ms": p, "cudnn_ms": cud,
+                     "design_floor_ms": floor, "split": split}
+        log(f"[times] {card}: FCM {name} kernel {k} ms, plain version "
+            f"(fcm_reference) {p} ms, model.FCM_0 (cuDNN, fp32) {cud} ms; "
+            f"design byte floor {floor:.4f} ms (the kernel at "
+            f"{floor / ms(k):.1%} of it)")
+        for r in split:
+            log(f"[fcm split] {card}: {name} {r['name']:7s} {r['ms']:.4f} ms, "
+                f"{r['bytes'] / 1e6:.1f} MB, {r['gb_per_s']:.0f} GB/s, "
+                f"{r['tflop_per_s']:.1f} TFLOP/s, byte floor "
+                f"{r['floor_ms']:.4f} ms ({r['floor_ms'] / r['ms']:.1%}); "
+                f"items {r['items']}, grid {r['grid']}")
+        log(f"[fcm split] {card}: {name} sum of launches "
+            f"{sum(r['ms'] for r in split):.4f} ms")
+    for name, b, t in (("b1 x 398", 1, 398), ("b64 x 398", 64, 398)):
+        fx = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
+        k, c = turns(lambda: model.FCM_0(fx),
+                     lambda: fkm.fcm_fused(packed_fcm, fx), 20)
+        out[name] = {"ms": k, "cudnn_ms": c}
+        log(f"[times] {card}: FCM {name} frames kernel {k} ms, model.FCM_0 "
+            f"(cuDNN, fp32) {c} ms")
+    return out
 
 
 def cos_min(a, b):
@@ -714,23 +816,7 @@ def main():
                                                                    SEED)))
     model.to(dev).eval().requires_grad_(False)
     packed_fcm = fkm.pack_fcm(model)
-    fcm_max = 0.0
-    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198)):
-        x = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
-        got = fkm.fcm_fused(packed_fcm, x)
-        ref = fkm.fcm_reference(packed_fcm, x)
-        torch.cuda.synchronize()
-        g, r = got.double(), ref.double()
-        d = float((g - r).abs().max())
-        scale = max(1.0, float(r.abs().max()))
-        c = float((g * r).sum() / (g.norm() * r.norm()))
-        log(f"[fcm] b{b} x {t} frames: shape {tuple(got.shape)} cos={c:.8f} "
-            f"max|d|={d:.3e} max|d|/scale={d / scale:.3e} (bars cos > 0.9999, "
-            f"max|d|/scale < 5e-2)")
-        if not (got.shape == (b, t, 320) and torch.isfinite(g).all()
-                and c > 0.9999 and d / scale < 5e-2):
-            raise AssertionError(f"FCM kernel disagrees (b{b} x {t})")
-        fcm_max = max(fcm_max, d)
+    fcm_max = check_fcm(fkm, packed_fcm, rng, dev)
 
     # ---- 5. trunk kernel vs plain ----------------------------------------
     packed = tk.pack_trunk(model)
@@ -850,16 +936,6 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
 
     # ---- 7. times on the card -------------------------------------------
-    ms = lambda xs: sum(xs) / len(xs)  # noqa: E731
-
-    def turns(plain, kernel, iters, plain_iters=None):
-        """plain, kernel, kernel, plain: two CUDA-event means each."""
-        pi = plain_iters or iters
-        p = [cuda_ms(plain, pi, 1)]
-        k = [cuda_ms(kernel, iters) for _ in range(2)]
-        p.append(cuda_ms(plain, pi, 1))
-        return k, p
-
     w16 = torch.from_numpy(
         (rng.randn(32, 256000) * 0.1).astype(np.float32)).to(dev)
     with torch.no_grad():
@@ -872,12 +948,9 @@ def main():
         embed_ms = cuda_ms(lambda: embed(waves), 10)
         feats_3 = feat(waves)
         feats_16 = feat(w16)
-        fcm_times = {}
-        for name, fx in (("b256 x 3 s", feats_3), ("b32 x 16 s", feats_16)):
-            k, p = turns(lambda: fkm.fcm_reference(packed_fcm, fx),
-                         lambda: fkm.fcm_fused(packed_fcm, fx), 10, 3)
-            cud = [cuda_ms(lambda: model.FCM_0(fx), 3, 1) for _ in range(2)]
-            fcm_times[name] = (k, p, cud)
+        fcm_t = fcm_times(fkm, packed_fcm, model, {"b256 x 3 s": feats_3,
+                                                   "b32 x 16 s": feats_16},
+                          rng, dev, card)
         fcm16 = fkm.fcm_fused(packed_fcm, feats_16)
         tr16_kern, tr16_plain = turns(
             lambda: tk.trunk_stats_reference(packed, fcm16),
@@ -920,9 +993,6 @@ def main():
         f"{tr_plain} ms")
     log(f"[times] {card}: whole embed b256 x 3 s {embed_ms:.3f} ms/batch = "
         f"{256e3 / embed_ms:.1f} utt/s")
-    for name, (k, p, cud) in fcm_times.items():
-        log(f"[times] {card}: FCM {name} kernel {k} ms, plain version "
-            f"(fcm_reference) {p} ms, model.FCM_0 (cuDNN, fp32) {cud} ms")
     log(f"[times] {card}: trunk b32 x 1598 frames kernel {tr16_kern} ms, "
         f"plain {tr16_plain} ms")
     log(f"[times] {card}: whole embed b32 x 16 s {embed16_ms:.3f} ms/batch = "
@@ -943,8 +1013,7 @@ def main():
     served = serve_phase(model, dev, card, rng)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
-    k16, p16, cud16 = fcm_times["b32 x 16 s"]
-    k3, p3, cud3 = fcm_times["b256 x 3 s"]
+    f16, f3 = fcm_t["b32 x 16 s"], fcm_t["b256 x 3 s"]
     # bounds at the shapes of "ms": fbank b256 x 3 s (fp32: a 512-point
     # FFT per frame, not the kernel's folded DFT), FCM b32 x 16 s (bf16 convs),
     # trunk b256 x 3 s (bf16 products over the valid rows)
@@ -976,12 +1045,21 @@ def main():
         {"name": "fcm", "route": "cuda", "source": FCM_SRC,
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,
-         "ms": ms(k16), "plain_ms": ms(p16), **fcm_bounds["b32 x 16 s"],
-         "library_ms": None, "cudnn_ms": ms(cud16),
-         "shape": "b32 x 16 s", "ms_b256x3s": ms(k3),
-         "plain_ms_b256x3s": ms(p3), "cudnn_ms_b256x3s": ms(cud3),
+         "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
+         **fcm_bounds["b32 x 16 s"], "library_ms": None,
+         "cudnn_ms": ms(f16["cudnn_ms"]),
+         "design_floor_ms": f16["design_floor_ms"], "shape": "b32 x 16 s",
+         "ms_b256x3s": ms(f3["ms"]), "plain_ms_b256x3s": ms(f3["plain_ms"]),
+         "cudnn_ms_b256x3s": ms(f3["cudnn_ms"]),
          "bound_ms_b256x3s": fcm_bounds["b256 x 3 s"]["bound_ms"],
-         "work_gflop_b256x3s": fcm_bounds["b256 x 3 s"]["work_gflop"]},
+         "work_gflop_b256x3s": fcm_bounds["b256 x 3 s"]["work_gflop"],
+         "design_floor_ms_b256x3s": f3["design_floor_ms"],
+         "occupancy": fcm_t["occupancy"],
+         "split_ms": {n: {r["name"]: r["ms"] for r in f["split"]}
+                      for n, f in (("b32 x 16 s", f16), ("b256 x 3 s", f3))},
+         "vs_cudnn_398": {n: {"ms": ms(fcm_t[n]["ms"]),
+                              "cudnn_ms": ms(fcm_t[n]["cudnn_ms"])}
+                          for n in ("b1 x 398", "b64 x 398")}},
         {"name": "campplus_trunk", "route": "cuda", "source": TRUNK_SRC,
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,

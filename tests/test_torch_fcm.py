@@ -127,3 +127,74 @@ def test_cpu_tensor_runs_plain_version_without_launch(setup):
     torch.testing.assert_close(got, fkm.fcm_reference(packed, x), rtol=0, atol=0)
     with pytest.raises(ValueError, match="expected"):
         fkm.fcm_fused(packed, torch.zeros(1, 10, 64))
+
+
+def test_launch_units_and_bytes(setup):
+    """The units each launch of the kernel reads and writes (one unit: one
+    frequency of 32 bf16 channels over every frame) add up to the design's
+    775, 2.54 GB at b32 x 1598 and 3.78 GB at b256 x 298; the operations
+    are those of the packed weights."""
+    _, tm = setup
+    packed = fkm.pack_fcm(tm)
+    assert [n for n, *_ in fkm.FCM_LAUNCHES] == [
+        "conv0", "c1", "c2+sc3", "c4", "c5", "c6", "c7+sc8", "c9", "c10",
+        "c11"]
+    assert sum(r + w for *_, r, w in fkm.FCM_LAUNCHES) == 775
+    for (b, t), gb in (((32, 1598), 2.536), ((256, 298), 3.784)):
+        costs = fkm.fcm_launch_costs(b, t)
+        total = sum(c["bytes"] for c in costs)
+        assert total == 775 * b * t * 64
+        assert abs(total / 1e9 - gb) < 1e-3
+    # 2 x MACs of every packed conv at its output frequencies, the 1x1
+    # shortcuts (3, 8) in the launches of convs 2 and 7
+    f_out = [80, 40, 40, 40, 40, 40, 20, 20, 20, 20, 20, 10]
+    macs = [packed[f"w{i}"].shape[0] * 32 * f_out[i] for i in range(12)]
+    by_launch = [macs[0], macs[1], macs[2] + macs[3], macs[4], macs[5],
+                 macs[6], macs[7] + macs[8], macs[9], macs[10], macs[11]]
+    costs = fkm.fcm_launch_costs(2, 7)
+    assert [c["flop"] for c in costs] == [2 * 14 * m for m in by_launch]
+
+
+@pytest.mark.parametrize("b,t,f_out,want", [
+    (32, 1598, 40, 32 * 50 * 4), (32, 1598, 10, 32 * 50), (3, 17, 20, 6),
+    (1, 1000, 40, 32 * 4), (256, 298, 20, 256 * 10 * 2), (2, 3198, 10, 200)])
+def test_conv_items(b, t, f_out, want):
+    """Items of a conv launch: (32-frame tile, 10-frequency band, utterance);
+    a ragged last tile counts."""
+    assert fkm.fcm_conv_items(b, t, f_out) == want
+
+
+@pytest.mark.parametrize("n_items,n_sms,per_sm,want", [
+    (6400, 132, 1, 132), (6400, 132, 2, 264), (100, 132, 1, 100),
+    (1, 132, 1, 1), (132, 132, 1, 132), (133, 132, 1, 132)])
+def test_persistent_grid(n_items, n_sms, per_sm, want):
+    """The grid is the card's resident blocks, or the items if fewer; each
+    block then walks items blockIdx.x, + grid, ..., so every item runs
+    once."""
+    grid = fkm.persistent_grid(n_items, n_sms, per_sm)
+    assert grid == want
+    walked = sorted(i for blk in range(grid)
+                    for i in range(blk, n_items, grid))
+    assert walked == list(range(n_items))
+
+
+def test_persistent_grid_needs_a_resident_block():
+    with pytest.raises(ValueError, match="no resident block"):
+        fkm.persistent_grid(10, 132, 0)
+
+
+_OCC = {"stride 2": 1, "shortcut": 1, "stride 1": 2, "identity": 1,
+        "sms": 132}
+
+
+@pytest.mark.parametrize("b,t,want", [
+    (32, 1598, [132, 132, 264, 132, 132, 132, 264, 132, 132]),
+    (3, 17, [12, 12, 12, 12, 6, 6, 6, 6, 3]),
+    (1, 1598, [132, 132, 200, 132, 100, 100, 100, 100, 50])])
+def test_fcm_grids(b, t, want):
+    """The grids the wrapper passes to the kernel's nine conv launches:
+    each launch's items, capped by its instance's resident blocks."""
+    assert [k for _, k, *_ in fkm.FCM_LAUNCHES[1:]] == [
+        "stride 2", "shortcut", "stride 1", "identity", "stride 2",
+        "shortcut", "stride 1", "identity", "stride 2"]
+    assert fkm.fcm_grids(b, t, _OCC) == want

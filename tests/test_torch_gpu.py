@@ -167,12 +167,16 @@ def test_trunk_rejects_buckets_beyond_32s(cuda, model):
         tk.trunk_stats(packed, torch.zeros(1, 3202, 320, device=cuda))
 
 
+def _fcm_feats(b, t, device):
+    return torch.from_numpy(np.random.RandomState(t).randn(
+        b, t, 80).astype(np.float32)).to(device)
+
+
 @pytest.mark.parametrize("b,t", [(8, 298), (8, 297), (4, 1598), (2, 3198),
-                                 (3, 17)])
+                                 (3, 17), (256, 298), (1, 1000)])
 def test_fcm_kernel_matches_plain_version(cuda, model, b, t):
     packed = fkm.pack_fcm(model)
-    feats = torch.from_numpy(np.random.RandomState(t).randn(
-        b, t, 80).astype(np.float32)).to(cuda)
+    feats = _fcm_feats(b, t, cuda)
     before = fkm.fcm_fused.launches
     got = fkm.fcm_fused(packed, feats)
     torch.cuda.synchronize()
@@ -184,6 +188,62 @@ def test_fcm_kernel_matches_plain_version(cuda, model, b, t):
     cos = float((got * ref).sum() / (got.norm() * ref.norm()))
     assert cos > 0.9999
     assert float((got - ref).abs().max()) < 5e-2 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("b,t", [(3, 17), (2, 1598)])
+def test_fcm_ignores_stale_workspace(cuda, model, b, t):
+    """The workspace is torch.empty: rows past T inside T_pad are never
+    written, so the kernel must never read them. Memory full of NaN that
+    the caching allocator hands back to the next call's output and
+    workspace changes nothing."""
+    packed = fkm.pack_fcm(model)
+    feats = _fcm_feats(b, t, cuda)
+    clean = fkm.fcm_fused(packed, feats)
+    torch.cuda.synchronize()
+    t_pad = -(-t // 32) * 32
+    ws_elems = fkm._entries()[1](b, t_pad)
+    stale = [torch.full((ws_elems,), float("nan"), dtype=torch.bfloat16,
+                        device=cuda),
+             torch.full((b, t, 320), float("nan"), dtype=torch.bfloat16,
+                        device=cuda)]
+    torch.cuda.synchronize()
+    del stale
+    got = fkm.fcm_fused(packed, feats)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, clean)
+
+
+def test_fcm_launches_from_many_threads(cuda, model):
+    """Threads of a server launch the FCM kernel at shapes of different
+    grids (b1 x 1598, b3 x 1000, b4 x 3198) at once; every launch gives
+    what it gives alone, bit for bit (no atomics: a fixed order of sums)."""
+    packed = fkm.pack_fcm(model)
+    cases = []
+    for b, t in ((1, 1598), (3, 1000), (4, 3198)):
+        feats = _fcm_feats(b, t, cuda)
+        cases.append((feats, fkm.fcm_fused(packed, feats)))
+    torch.cuda.synchronize()
+    errors, mismatches = [], []
+
+    def worker(k):
+        try:
+            for i in range(9):
+                feats, want = cases[(k + i) % len(cases)]
+                got = fkm.fcm_fused(packed, feats)
+                torch.cuda.current_stream().synchronize()
+                if not torch.equal(got, want):
+                    mismatches.append((k, i))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not mismatches, (errors[:3], mismatches[:3])
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

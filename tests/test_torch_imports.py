@@ -89,6 +89,27 @@ def test_audio_segment_matches_jax():
     np.testing.assert_array_equal(a.samples, b.samples)
 
 
+def test_default_feature_method_matches_jax_and_is_not_ported():
+    """Both packages default to MelSpectrogram; the port has no
+    MelSpectrogram yet, so a featurizer that names no method raises
+    instead of computing another feature."""
+    import inspect
+
+    import torch
+
+    from voiceprintrecognition_paddlepaddle_torch.ops import features as tfeat
+    from voiceprintrecognition_paddlepaddle_tpu.ops import features as jfeat
+
+    for mod in (tfeat, jfeat):
+        for fn in (mod.compute_feature, mod.AudioFeaturizer.__init__):
+            param = inspect.signature(fn).parameters["feature_method"]
+            assert param.default == "MelSpectrogram", (mod.__name__, fn)
+    with pytest.raises(NotImplementedError, match="MelSpectrogram"):
+        tfeat.AudioFeaturizer()
+    with pytest.raises(NotImplementedError, match="MelSpectrogram"):
+        tfeat.compute_feature(torch.zeros(1, 16000))
+
+
 def test_wav_roundtrip(tmp_path):
     x = (np.random.RandomState(1).randn(1600) * 0.1).astype(np.float32)
     path = tmp_path / "x.wav"

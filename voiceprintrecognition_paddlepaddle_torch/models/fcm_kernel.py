@@ -14,6 +14,12 @@ shortcuts) and a final stride-2 3x3 conv.
   every conv ('same' zero padding at the time and frequency edges).
 - ``fcm_fused`` is the wrapper: the CUDA kernel on a CUDA tensor (with a
   launch counter), the plain version on a CPU tensor.
+- ``fcm_stage_times`` times each of the kernel's launches with CUDA
+  events; ``fcm_launch_costs`` gives the bytes each launch's design moves
+  and the operations it does, for the rates beside those times.
+- ``fcm_grids`` sizes the persistent grid of each conv launch from the
+  card's resident blocks (``fcm_occupancy``), and the wrapper passes those
+  grids to the kernel.
 
 The embed path uses the kernel for buckets of ``FCM_MIN_T`` frames and
 more, as the JAX package does (``pallas_campplus.py:88``); shorter
@@ -29,13 +35,16 @@ import torch.nn.functional as F
 from .layers import bn_affine
 
 __all__ = ["pack_fcm", "fcm_reference", "fcm_fused", "fcm_supported",
+           "fcm_stage_times", "fcm_launch_costs", "fcm_occupancy",
+           "fcm_conv_items", "persistent_grid", "fcm_grids", "FCM_LAUNCHES",
            "FCM_MIN_T", "FCM_MAX_FRAMES"]
 
 F_IN = 80                 # input mel bins (the kernel is built for them)
 FCM_DIM = 320             # 32 channels x 10 frequencies
 FCM_MIN_T = 1000          # frames from which the embed path takes the kernel
 FCM_MAX_FRAMES = 6000     # nominal, as the JAX package's (predict's cap rules)
-_TIME_TILE = 32           # csrc/fcm.cu kTT
+_TIME_TILE = 32           # csrc/fcm.cu kTT (fcm_occupancy checks both)
+_FREQ_BAND = 10           # csrc/fcm.cu kFB: output frequencies per item
 _C = 32
 _BF16 = torch.bfloat16
 
@@ -55,6 +64,86 @@ _SPECS = [
     ("BasicResBlock_3.Conv_1", "BasicResBlock_3.BatchNorm_1", 1),
     ("Conv_1", "BatchNorm_1", 2),
 ]
+
+
+# The launches of csrc/fcm.cu, in order: (name, the conv kernel's instance
+# (a key of fcm_occupancy; None for conv0, which has its own kernel),
+# output frequencies, K of the product per output (input channels x taps,
+# the 1x1 shortcut's 32 added where it runs in the same launch), units
+# read, units written).
+# A unit is one frequency of 32 bf16 channels over every frame, 64 bytes a
+# frame; conv0 reads the fp32 features (320 bytes a frame: 5 units). The
+# launches of c2 and c7 also read their shortcut's input at the even
+# frequencies, those of c5 and c10 the identity residual.
+FCM_LAUNCHES = (
+    ("conv0", None, 80, 9, 5, 80),
+    ("c1", "stride 2", 40, 288, 80, 40),
+    ("c2+sc3", "shortcut", 40, 288 + 32, 80, 40),
+    ("c4", "stride 1", 40, 288, 40, 40),
+    ("c5", "identity", 40, 288, 80, 40),
+    ("c6", "stride 2", 20, 288, 40, 20),
+    ("c7+sc8", "shortcut", 20, 288 + 32, 40, 20),
+    ("c9", "stride 1", 20, 288, 20, 20),
+    ("c10", "identity", 20, 288, 40, 20),
+    ("c11", "stride 2", 10, 288, 20, 10),
+)
+_UNIT_BYTES = _C * 2      # one frequency of 32 bf16 channels, per frame
+
+
+def fcm_launch_costs(b, t):
+    """Per launch of the kernel at ``b`` utterances of ``t`` frames:
+    ``{"name", "bytes", "flop"}``. Bytes count each unit the launch reads
+    or writes once (``FCM_LAUNCHES``); flop is 2 x frames x output
+    frequencies x 32 channels x K."""
+    frames = b * t
+    return [{"name": name, "bytes": (r + w) * frames * _UNIT_BYTES,
+             "flop": 2 * frames * f_out * _C * k}
+            for name, _, f_out, k, r, w in FCM_LAUNCHES]
+
+
+def fcm_conv_items(b, t, f_out):
+    """Work items of one 32 -> 32 conv launch: (32-frame time tile, band
+    of 10 output frequencies, utterance)."""
+    return b * -(-t // _TIME_TILE) * (f_out // _FREQ_BAND)
+
+
+def persistent_grid(n_items, n_sms, per_sm):
+    """Blocks of a persistent conv launch: the card's resident blocks
+    (``n_sms`` x ``per_sm``), or fewer if there are fewer items."""
+    if n_sms < 1 or per_sm < 1:
+        raise ValueError(f"no resident block ({n_sms} SMs x {per_sm})")
+    return min(n_items, n_sms * per_sm)
+
+
+def fcm_grids(b, t, occ):
+    """Blocks of each conv launch after conv0, in launch order, for ``b``
+    utterances of ``t`` frames on a card with ``occ`` (``fcm_occupancy``):
+    the grids the wrapper passes to the kernel."""
+    return [persistent_grid(fcm_conv_items(b, t, f_out), occ["sms"],
+                            occ[kind])
+            for _, kind, f_out, *_ in FCM_LAUNCHES[1:]]
+
+
+def fcm_occupancy(device=None):
+    """Resident blocks per SM of the conv kernel's instances on the current
+    (or given) CUDA device, as the kernel asks the runtime, and the SM
+    count: ``{"stride 2", "shortcut", "stride 1", "identity", "sms"}``."""
+    device = torch.device("cuda" if device is None else device)
+    return dict(_occupancy(device.index if device.index is not None
+                           else torch.cuda.current_device()))
+
+
+@lru_cache(maxsize=None)
+def _occupancy(device_index):
+    from .._build import check
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device_index):
+        check(_entries()[2](out), "vpr_fcm_occupancy")
+    if (out[5], out[6]) != (_TIME_TILE, _FREQ_BAND):
+        raise RuntimeError(f"csrc/fcm.cu has kTT={out[5]}, kFB={out[6]}; this "
+                           f"module sizes grids for {_TIME_TILE}, {_FREQ_BAND}")
+    return dict(zip(("stride 2", "shortcut", "stride 1", "identity", "sms"),
+                    out))
 
 
 def fcm_supported(t, n_feats):
@@ -118,8 +207,9 @@ def fcm_reference(packed, feats):
 class _FcmParams(ctypes.Structure):
     """Mirror of ``FcmParams`` in ``csrc/fcm.cu``."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "out", "ws", *(f"w{i}" for i in range(12)), "aff")] + [
-        (name, ctypes.c_int) for name in ("B", "T", "T_pad")]
+        "x", "out", "ws", *(f"w{i}" for i in range(12)), "aff",
+        "events")] + [(name, ctypes.c_int) for name in ("B", "T", "T_pad")] + [
+        ("grid", ctypes.c_int * (len(FCM_LAUNCHES) - 1))]
 
 
 @lru_cache(maxsize=None)
@@ -132,7 +222,10 @@ def _entries():
     ws = lib.vpr_fcm_workspace_elems
     ws.restype = ctypes.c_longlong
     ws.argtypes = [ctypes.c_int, ctypes.c_int]
-    return fn, ws
+    occ = lib.vpr_fcm_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    return fn, ws, occ
 
 
 def fcm_fused(packed, feats):
@@ -141,10 +234,37 @@ def fcm_fused(packed, feats):
     A CPU tensor runs ``fcm_reference``. A CUDA tensor launches the CUDA
     kernel (fp32 features in, bf16 out; bf16 packing only) and adds one to
     ``fcm_fused.launches``."""
-    if feats.ndim != 3 or feats.shape[2] != F_IN:
-        raise ValueError(f"expected (B, T, {F_IN}), got {tuple(feats.shape)}")
+    _check_shape(feats)
     if feats.device.type == "cpu":
         return fcm_reference(packed, feats)
+    return _launch(packed, feats)
+
+
+def fcm_stage_times(packed, feats, iters=10):
+    """CUDA-event ms of each launch of the kernel on the CUDA tensor
+    ``feats``, a mean over ``iters`` runs: ``{name: ms}`` in the order of
+    ``FCM_LAUNCHES``. Each run counts in ``fcm_fused.launches``."""
+    _check_shape(feats)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(FCM_LAUNCHES) + 1)]
+    for e in events:          # the handles exist from the first record on
+        e.record()
+    handles = (ctypes.c_void_p * len(events))(*(e.cuda_event for e in events))
+    sums = [0.0] * len(FCM_LAUNCHES)
+    for _ in range(iters):
+        _launch(packed, feats, handles)
+        events[-1].synchronize()
+        for i in range(len(FCM_LAUNCHES)):
+            sums[i] += events[i].elapsed_time(events[i + 1])
+    return {name: s / iters for (name, *_), s in zip(FCM_LAUNCHES, sums)}
+
+
+def _check_shape(feats):
+    if feats.ndim != 3 or feats.shape[2] != F_IN:
+        raise ValueError(f"expected (B, T, {F_IN}), got {tuple(feats.shape)}")
+
+
+def _launch(packed, feats, events=None):
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     b, t, _ = feats.shape
@@ -158,14 +278,16 @@ def fcm_fused(packed, feats):
         if k != "aff" and v.dtype != _BF16:
             raise ValueError(f"the FCM kernel takes bf16 weights, packed[{k!r}] "
                              f"is {v.dtype}")
-    fn, ws_elems = _entries()
+    fn, ws_elems, _ = _entries()
     x = feats.float().contiguous()
     t_pad = -(-t // _TIME_TILE) * _TIME_TILE
     out = torch.empty((b, t, FCM_DIM), dtype=_BF16, device=dev)
     ws = torch.empty((ws_elems(b, t_pad),), dtype=_BF16, device=dev)
+    grids = fcm_grids(b, t, fcm_occupancy(dev))
     p = _FcmParams(x.data_ptr(), out.data_ptr(), ws.data_ptr(),
                    *(packed[f"w{i}"].data_ptr() for i in range(12)),
-                   packed["aff"].data_ptr(), b, t, t_pad)
+                   packed["aff"].data_ptr(), ctypes.cast(events, ctypes.c_void_p),
+                   b, t, t_pad, (ctypes.c_int * len(grids))(*grids))
     from .._build import check
     check(fn(p, torch.cuda.current_stream(dev).cuda_stream), "vpr_fcm")
     fcm_fused.launches += 1

@@ -5,6 +5,8 @@ port serves: ``feature_method="Fbank"`` with the stock kaldi options.
 Fbank runs through ``fbank_kernel.fbank_fused`` (the CUDA kernel on a
 CUDA tensor). The other feature methods, dither and non-stock kaldi
 options raise ``NotImplementedError``; they are queued in ROADMAP.md.
+The default method is the JAX package's, ``"MelSpectrogram"``, so a call
+that names no method raises until that method is ported.
 
 Output convention as in the JAX package: ``(B, T, F)``, CMN over the
 valid frames only when length ratios are given.
@@ -45,7 +47,7 @@ def apply_cmn_and_mask(feature, input_lens_ratio=None):
     return torch.where(mask, feature - mean, 0.0)
 
 
-def compute_feature(waveforms, feature_method="Fbank",
+def compute_feature(waveforms, feature_method="MelSpectrogram",
                     input_lens_ratio=None, sr=16000, n_mels=23,
                     **method_args):
     """Padded waveforms ``(B, L)`` -> features ``(B, T, n_mels)``."""
@@ -61,7 +63,7 @@ class AudioFeaturizer:
     tensors of shape ``(L,)`` or ``(B, L)`` and returns ``(B, T, F)`` on
     the tensor's device (numpy input runs on the CPU)."""
 
-    def __init__(self, feature_method="Fbank", method_args=None):
+    def __init__(self, feature_method="MelSpectrogram", method_args=None):
         method_args = dict(method_args or {})
         method_args.setdefault("sr", 16000)
         _check_method(feature_method, method_args)
