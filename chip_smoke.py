@@ -8,7 +8,10 @@ Phases (any failure raises and the script exits non-zero):
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> fail
 2. build    nvcc builds csrc/*.cu for sm_90a (one process per source, all
             at once); prints time and ptxas output
-3. fbank    the fbank kernel against its plain version, b256 x 3 s
+3. fbank    the fbank kernel against its plain version, b256 x 3 s; then
+            on hard inputs (1e-4 noise, a tone then digital silence, a
+            1e-3 tone on a 0.5 DC offset, rows of 48123 and 401 samples)
+            against a float64 run of kaldi's steps (``fbank_steps``)
 4. fcm      the FCM kernel against its plain version (both bf16) at full
             CAM++ width: b8 x 298 and b8 x 297 frames (where the JAX
             package's single-pass kernel runs), b4 x 1598 (the 16 s
@@ -31,7 +34,11 @@ Phases (any failure raises and the script exits non-zero):
             16 s and 32 s embeddings are held against the eager fp32 model
 7. times    CUDA-event times of each kernel against its plain version and
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
-            and b32 x 16 s; the FCM kernel also against the model's plain
+            and b32 x 16 s; the fbank kernel also at b32 x 16 s and b1 x
+            64000 (one /embedding), each beside ``cufft_ms`` (kaldi's steps
+            as library calls with cuFFT, fp32) and its device time from a
+            CUDA-graph replay (at b1 the events time the host's launches);
+            the FCM kernel also against the model's plain
             FCM (cuDNN), there and at b1 x 398 and b64 x 398 (below
             FCM_MIN_T), with the ms of each of its launches beside the
             bytes the design moves (GB/s, TFLOP/s, the byte floor); the
@@ -141,6 +148,105 @@ def fbank_flops_per_frame(mel_nonzero, frame_len=400, n_fft=512):
     The kernel does a folded DFT as a product, about 30 times this."""
     return (4 * frame_len + 2.5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2)
             + 2 * mel_nonzero)
+
+
+def fbank_bound(fk, waves, n_mels=80):
+    """Bound of one fbank call on ``waves`` (B, L): fp32 FFTs per frame,
+    the waveform read once and the log-mel written once."""
+    mel = fk.fbank_tables(16000, n_mels, waves.device).mel
+    n_frames = waves.shape[0] * (1 + (waves.shape[1] - 400) // 160)
+    return bound(n_frames * fbank_flops_per_frame(int((mel != 0).sum())),
+                 PEAK_FP32, nbytes(waves) + n_frames * n_mels * 4)
+
+
+def fbank_steps(fk, waves, n_mels=80, dtype=torch.float64):
+    """Kaldi's fbank as a composition of library calls in ``dtype``:
+    unfold, DC removal, pre-emphasis, povey window, ``torch.fft.rfft``
+    (cuFFT on the card), power, mel matmul, log. In float64 it is the
+    reference the fbank kernel is held to on hard inputs; in float32 its
+    time is ``cufft_ms``, a yardstick. The port never calls it."""
+    tables = fk.fbank_tables(16000, n_mels, waves.device)
+    x = waves.to(dtype)
+    t = 1 + (x.shape[1] - 400) // 160
+    frames = x[:, :(t - 1) * 160 + 400].unfold(-1, 400, 160)
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+    frames = (frames - 0.97 * prev) * tables.window.to(dtype)
+    spec = torch.fft.rfft(frames, n=512)[..., :256]   # Nyquist: weight 0
+    power = spec.real ** 2 + spec.imag ** 2
+    return torch.log(torch.clamp(power @ tables.mel.to(dtype),
+                                 min=float(np.finfo(np.float32).eps)))
+
+
+def tone(n):
+    """A 1 kHz sine of amplitude 1, ``n`` samples at 16 kHz (float64)."""
+    return np.sin(2 * np.pi * 1000.0 * (np.arange(n) / 16000.0))
+
+
+def tone_then_silence(n):
+    """(1, n) float32: the 1 kHz tone at 0.5 for the first half, then
+    digital silence."""
+    return np.where(np.arange(n) < n // 2, 0.5 * tone(n),
+                    0.0)[None].astype(np.float32)
+
+
+def hard_waves(rng):
+    """{name: (B, L) float32}: inputs hard for an fp32 fbank (low energy,
+    digital silence, a weak tone on a DC offset) and rows that do not
+    start on 16 bytes (L % 4 != 0)."""
+    waves = {"1e-4 noise": rng.randn(4, 48000) * 1e-4,
+             "1 kHz tone, then 1.5 s of silence": tone_then_silence(48000),
+             "1e-3 tone on a 0.5 DC offset": (0.5 + 1e-3 * tone(48000))[None],
+             "noise, 48123 samples": rng.randn(3, 48123) * 0.1,
+             "noise, 401 samples": rng.randn(5, 401) * 0.1}
+    return {k: v.astype(np.float32) for k, v in waves.items()}
+
+
+def check_fbank_hard(fk, dev, rng):
+    """Phase 3, hard inputs: the kernel against a float64 run of kaldi's
+    steps, bars max |d| < 2e-2 and p99 <= max(1e-3, 2 x the plain
+    version's p99 against the same run). Returns the largest max |d|."""
+    worst = 0.0
+    for name, w in hard_waves(rng).items():
+        x = torch.from_numpy(w).to(dev)
+        exact = fbank_steps(fk, x)
+        got = fk.fbank_fused(x)
+        plain = fk.fbank_fused_reference(x)
+        torch.cuda.synchronize()
+        d = (got.double() - exact).abs().flatten()
+        dp = (plain.double() - exact).abs().flatten()
+        p99, p99_plain = (float(torch.quantile(v, 0.99)) for v in (d, dp))
+        bar = max(1e-3, 2 * p99_plain)
+        log(f"[fbank] {name} {tuple(w.shape)}: kernel vs float64 max|d|="
+            f"{float(d.max()):.3e} p99={p99:.3e}; plain version vs float64 "
+            f"max|d|={float(dp.max()):.3e} p99={p99_plain:.3e} (bars 2e-2, "
+            f"p99 <= {bar:.3e})")
+        if not (got.shape == exact.shape and float(d.max()) < 2e-2
+                and p99 <= bar):
+            raise AssertionError(f"fbank kernel misses its bars ({name})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def fbank_times(fk, shapes, card):
+    """Phase 7, the fbank: for each of ``shapes`` ({name: (B, L) waves})
+    the kernel against its plain version in turns, ``cufft_ms``
+    (``fbank_steps`` in fp32, twice) and the kernel's device time from a
+    graph replay (``graph_ms``, twice)."""
+    out = {}
+    for name, w in shapes.items():
+        iters = 200 if w.shape[0] == 1 else 20
+        k, p = turns(lambda: fk.fbank_fused_reference(w),
+                     lambda: fk.fbank_fused(w), iters)
+        c = [cuda_ms(lambda: fbank_steps(fk, w, dtype=torch.float32), iters)
+             for _ in range(2)]
+        g = [graph_ms(lambda: fk.fbank_fused(w)) for _ in range(2)]
+        out[name] = {"ms": k, "plain_ms": p, "cufft_ms": c, "graph_ms": g,
+                     **fbank_bound(fk, w)}
+        log(f"[times] {card}: fbank {name} kernel {k} ms (graph replay {g} "
+            f"ms), plain version {p} ms, cuFFT composition {c} ms; bound "
+            f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
+    return out
 
 
 def resident_table(tk, index):
@@ -311,6 +417,18 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, n=20):
+    """Device ms of one ``fn()`` without the host's launch cost: ``n``
+    calls captured in one CUDA graph, the graph replayed (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 10) / n
 
 
 def ms(xs):
@@ -809,6 +927,8 @@ def main():
         f"p99|d|={fb_p99:.3e} (bars 2e-2, 1e-3)")
     if not (got.shape == (256, 298, 80) and fb_max < 2e-2 and fb_p99 < 1e-3):
         raise AssertionError("fbank kernel disagrees with its plain version")
+    fb_hard_max = check_fbank_hard(fk, dev,
+                                   np.random.RandomState(SEED + 1))
 
     # ---- 4. FCM kernel vs plain -----------------------------------------
     model = CAMPPlus(80, embd_dim=192)
@@ -938,10 +1058,11 @@ def main():
     # ---- 7. times on the card -------------------------------------------
     w16 = torch.from_numpy(
         (rng.randn(32, 256000) * 0.1).astype(np.float32)).to(dev)
+    w1 = torch.from_numpy((np.random.RandomState(SEED + 2).randn(1, 64000)
+                           * 0.1).astype(np.float32)).to(dev)
     with torch.no_grad():
-        fb_kern, fb_plain = turns(
-            lambda: fk.fbank_fused_reference(waves, n_mels=80),
-            lambda: fk.fbank_fused(waves, n_mels=80), 20)
+        fb_t = fbank_times(fk, {"b256 x 3 s": waves, "b32 x 16 s": w16,
+                                "b1 x 64000": w1}, card)
         tr_kern, tr_plain = turns(
             lambda: tk.trunk_stats_reference(packed, fcm_b256),
             lambda: tk.trunk_stats(packed, fcm_b256), 10, 3)
@@ -987,8 +1108,6 @@ def main():
             "trunk kernel": cuda_ms(lambda: tk.trunk_stats(packed, fcm16), 5),
             "head": cuda_ms(lambda: model.DenseBN_0(stats16), 10),
         }
-    log(f"[times] {card}: fbank b256 x 3 s kernel {fb_kern} ms, plain "
-        f"{fb_plain} ms")
     log(f"[times] {card}: trunk b256 x 298 frames kernel {tr_kern} ms, plain "
         f"{tr_plain} ms")
     log(f"[times] {card}: whole embed b256 x 3 s {embed_ms:.3f} ms/batch = "
@@ -1015,12 +1134,21 @@ def main():
 
     f16, f3 = fcm_t["b32 x 16 s"], fcm_t["b256 x 3 s"]
     # bounds at the shapes of "ms": fbank b256 x 3 s (fp32: a 512-point
-    # FFT per frame, not the kernel's folded DFT), FCM b32 x 16 s (bf16 convs),
-    # trunk b256 x 3 s (bf16 products over the valid rows)
-    _, mel, _ = fk.fbank_tables(16000, 80, dev)
-    n_frames = 256 * 298
-    fb_bound = bound(n_frames * fbank_flops_per_frame(int((mel != 0).sum())),
-                     PEAK_FP32, nbytes(waves) + n_frames * 80 * 4)
+    # FFT per frame), FCM b32 x 16 s (bf16 convs), trunk b256 x 3 s (bf16
+    # products over the valid rows)
+    fb3 = fb_t["b256 x 3 s"]
+    fb_bound = {k: fb3[k] for k in ("bound_ms", "bound_by", "work_gflop")}
+    fb_entry = {
+        "name": "fbank", "route": "cuda", "source": FBANK_SRC,
+        "replaces": FBANK_TPU, "launches": launches["fbank"],
+        "max_abs_err": fb_max, "max_abs_err_hard_vs_float64": fb_hard_max,
+        "ms": ms(fb3["ms"]), "plain_ms": ms(fb3["plain_ms"]), **fb_bound,
+        "library_ms": None, "cufft_ms": ms(fb3["cufft_ms"]),
+        "graph_ms": ms(fb3["graph_ms"]), "shape": "b256 x 3 s"}
+    for name, key in (("b32 x 16 s", "b32x16s"), ("b1 x 64000", "b1x64000")):
+        fb_entry.update({f"{k}_{key}": ms(fb_t[name][k])
+                         for k in ("ms", "plain_ms", "cufft_ms", "graph_ms")})
+        fb_entry[f"bound_ms_{key}"] = fb_t[name]["bound_ms"]
     fcm_macs, f = 0, 80
     for i, (_, _, stride) in enumerate(fkm._SPECS):
         f = f // stride if stride else f
@@ -1038,10 +1166,7 @@ def main():
         log(f"[times] {name}: bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
             f"{bd['work_gflop']:.2f} GFLOP) on the published H100 SXM peaks")
     print(json.dumps({"kernels": [
-        {"name": "fbank", "route": "cuda", "source": FBANK_SRC,
-         "replaces": FBANK_TPU, "launches": launches["fbank"],
-         "max_abs_err": fb_max, "ms": ms(fb_kern), "plain_ms": ms(fb_plain),
-         **fb_bound, "library_ms": None, "shape": "b256 x 3 s"},
+        fb_entry,
         {"name": "fcm", "route": "cuda", "source": FCM_SRC,
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import fbank_steps, tone_then_silence
+from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel
 from voiceprintrecognition_paddlepaddle_torch.ops import features as tfeat
 from voiceprintrecognition_paddlepaddle_torch.ops import kaldi as tkaldi
 from voiceprintrecognition_paddlepaddle_torch.ops.fbank_kernel import (
-    fbank_fused, fbank_fused_reference, folded_dft_np)
+    fbank_fused, fbank_fused_reference, fbank_tables, folded_dft_np)
 from voiceprintrecognition_paddlepaddle_tpu.ops import features as jfeat
 from voiceprintrecognition_paddlepaddle_tpu.ops import kaldi as jkaldi
 from voiceprintrecognition_paddlepaddle_tpu.ops.pallas_fbank import (
@@ -109,6 +111,168 @@ def test_non_stock_options_raise(bad):
 def test_other_feature_methods_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tfeat.AudioFeaturizer("MelSpectrogram", {})
+
+
+# ---- numpy emulation of the CUDA kernel's algorithm (csrc/fbank.cu) -------
+# The kernel runs only on the card; this follows its steps in fp32 on the
+# host tables the wrapper passes: 16 lanes per frame, lane l holding the
+# packed points z[l + 16 q] = y[2l + 32q] + i y[2l + 32q + 1]; a 16-point
+# DFT over q (four-step 4 x 4), the twiddles W_256^(l kq), the transpose,
+# a 16-point DFT over l, the split into the real FFT, power, the sparse
+# mel product and the log. Arrays index (frame, lane).
+
+_F32 = np.float32
+
+
+def _emu_w16(v, m, tw):
+    a, b = v
+    c1, s1, r = tw[32, 0], -tw[32, 1], tw[64, 0]
+    return {0: (a, b), 1: (a * c1 + b * s1, b * c1 - a * s1),
+            2: (r * (a + b), r * (b - a)),
+            3: (a * s1 + b * c1, b * s1 - a * c1),
+            4: (b, -a), 6: (r * (b - a), -r * (a + b)),
+            9: (-(a * c1 + b * s1), -(b * c1 - a * s1))}[m]
+
+
+def _emu_dft4(a0, a1, a2, a3):
+    s0 = (a0[0] + a2[0], a0[1] + a2[1])
+    d0 = (a0[0] - a2[0], a0[1] - a2[1])
+    s1 = (a1[0] + a3[0], a1[1] + a3[1])
+    d1 = (a1[0] - a3[0], a1[1] - a3[1])
+    return [(s0[0] + s1[0], s0[1] + s1[1]), (d0[0] + d1[1], d0[1] - d1[0]),
+            (s0[0] - s1[0], s0[1] - s1[1]), (d0[0] - d1[1], d0[1] + d1[0])]
+
+
+def _emu_dft16(a, tw):
+    """Forward 16-point DFT of 16 (re, im) arrays, natural order."""
+    b = [_emu_dft4(*(a[p4 + 4 * q4] for q4 in range(4))) for p4 in range(4)]
+    b = [[_emu_w16(b[p4][k4], p4 * k4, tw) for k4 in range(4)]
+         for p4 in range(4)]
+    out = [None] * 16
+    for k4 in range(4):
+        for kp4, v in enumerate(_emu_dft4(*(b[p4][k4] for p4 in range(4)))):
+            out[k4 + 4 * kp4] = v
+    return out
+
+
+def _emulate_kernel(waves, n_mels):
+    tables = fbank_tables(16000, n_mels, torch.device("cpu"))
+    window, tw, packed, rng = (tables.window.numpy(), tables.twiddles.numpy(),
+                               tables.mel_packed.numpy(),
+                               tables.mel_range.numpy())
+    b, n = waves.shape
+    t = tkaldi.num_frames_snip_edges(n, 400, 160)
+    frames = waves[:, np.arange(t)[:, None] * 160 + np.arange(400)]
+    frames = frames.reshape(-1, 400).astype(_F32)
+    lane = np.arange(16)
+    x = []                      # x[q] = (x[j], x[j+1]), zero past the frame
+    for q in range(16):
+        j = np.minimum(2 * lane + 32 * q, 398)
+        ok = 2 * lane + 32 * q < 400
+        x.append((np.where(ok, frames[:, j], 0).astype(_F32),
+                  np.where(ok, frames[:, j + 1], 0).astype(_F32)))
+    total = np.zeros((frames.shape[0], 16), _F32)
+    for x0, x1 in x:
+        total = total + x0
+        total = total + x1
+    for off in (8, 4, 2, 1):    # the warp's xor reduction
+        total = total + total[:, lane ^ off]
+    mu = total / _F32(400)
+    a = []
+    for q, (x0, x1) in enumerate(x):
+        j = np.minimum(2 * lane + 32 * q, 398)
+        ok = 2 * lane + 32 * q < 400
+        xm = frames[:, np.maximum(j - 1, 0)] - mu
+        y0 = ((x0 - mu) - _F32(0.97) * xm) * window[j]
+        y1 = ((x1 - mu) - _F32(0.97) * (x0 - mu)) * window[j + 1]
+        a.append((np.where(ok, y0, 0).astype(_F32),
+                  np.where(ok, y1, 0).astype(_F32)))
+    a = _emu_dft16(a, tw)       # a[kq]: lanes l
+    for kq in range(16):
+        w = tw[2 * lane * kq]
+        a[kq] = (a[kq][0] * w[:, 0] - a[kq][1] * w[:, 1],
+                 a[kq][0] * w[:, 1] + a[kq][1] * w[:, 0])
+    # the transpose: lane kq, register p holds A[p][kq]
+    re = np.stack([v[0] for v in a], axis=2)          # (frame, l, kq)
+    im = np.stack([v[1] for v in a], axis=2)
+    z = _emu_dft16([(re[:, p], im[:, p]) for p in range(16)], tw)
+    # Z[k], k = kq + 16 kp
+    zr = np.stack([v[0] for v in z], axis=1).reshape(-1, 256)
+    zi = np.stack([v[1] for v in z], axis=1).reshape(-1, 256)
+    # the split in pairs: X[k] = E + W^k O, X[256-k] = conj(E - W^k O)
+    k = np.arange(129)
+    ar, ai = zr[:, k], zi[:, k]
+    br, bi = zr[:, (256 - k) & 255], zi[:, (256 - k) & 255]
+    er, ei = _F32(0.5) * (ar + br), _F32(0.5) * (ai - bi)
+    o_r, o_i = _F32(0.5) * (ai + bi), _F32(0.5) * (br - ar)
+    tr = tw[k, 0] * o_r - tw[k, 1] * o_i
+    ti = tw[k, 0] * o_i + tw[k, 1] * o_r
+    power = np.empty((frames.shape[0], 256), _F32)
+    power[:, :129] = (er + tr) * (er + tr) + (ei + ti) * (ei + ti)
+    power[:, 255:128:-1] = ((er - tr) * (er - tr)
+                            + (ei - ti) * (ei - ti))[:, 1:128]
+    out = np.zeros((frames.shape[0], n_mels), _F32)
+    for m, (lo, hi) in enumerate(rng):
+        for q in range(lo, hi):
+            out[:, m] = out[:, m] + power[:, q] * packed[m, q - lo]
+    out = np.log(np.maximum(out, _F32(tkaldi.LOG_EPS)))
+    assert out.dtype == _F32
+    return out.reshape(b, t, n_mels)
+
+
+@pytest.mark.parametrize("n_samples", [400, 16000, 48000 + 123])
+@pytest.mark.parametrize("n_mels", [80, 40])
+@pytest.mark.parametrize("signal", ["noise", "tone_then_silence"])
+def test_fft_emulation_matches_jax(signal, n_mels, n_samples):
+    w = (_waves(6, 2, n_samples) if signal == "noise"
+         else tone_then_silence(n_samples))
+    got = _emulate_kernel(w, n_mels)
+    exact = fbank_steps(fbank_kernel, torch.from_numpy(w), n_mels).numpy()
+    _assert_fbank_bar(got, exact)
+    _assert_fbank_bar(got, np.asarray(jkaldi.fbank(w, sr=16000,
+                                                   n_mels=n_mels)))
+    pallas = np.asarray(fbank_pallas(w, sr=16000, n_mels=n_mels,
+                                     interpret=True))
+    if signal == "noise":
+        _assert_fbank_bar(got, pallas)
+    else:
+        # on whole frames of the tone the Pallas kernel's 3-pass bf16 DFT
+        # itself misses the p99 bar against float64 (low bins far from
+        # 1 kHz): the FFT must be nearer float64 than the TPU kernel is
+        assert np.abs(got - pallas).max() < 2e-2
+        p99 = lambda a: np.percentile(np.abs(a - exact), 99)  # noqa: E731
+        assert p99(got) <= p99(pallas)
+
+
+@pytest.mark.parametrize("n_mels", [80, 40])
+def test_fp32_steps_compute_kaldi_fbank(n_mels):
+    """``fbank_steps`` in fp32, the composition ``chip_smoke.py`` times as
+    ``cufft_ms``, computes the same function as JAX ``kaldi.fbank``."""
+    w = _waves(8, 2, 48000 + 123)
+    got = fbank_steps(fbank_kernel, torch.from_numpy(w), n_mels,
+                      dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _assert_fbank_bar(got.numpy(), np.asarray(jkaldi.fbank(w, sr=16000,
+                                                           n_mels=n_mels)))
+
+
+def test_kernel_tables():
+    tables = fbank_tables(16000, 80, torch.device("cpu"))
+    ang = 2 * np.pi * np.arange(512, dtype=np.float64) / 512
+    tw = tables.twiddles.numpy()
+    np.testing.assert_array_equal(tw[:, 0], np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], (-np.sin(ang)).astype(np.float32))
+    np.testing.assert_array_equal(tables.window.numpy(),
+                                  jkaldi._window_np("povey", 400))
+    # the packed filters, zero past each filter's width and 4 bins wide a
+    # step, rebuild the mel matrix
+    packed = tables.mel_packed.numpy()
+    assert packed.shape[1] % 4 == 0
+    mel = np.zeros_like(tables.mel.numpy())
+    for m, (lo, hi) in enumerate(tables.mel_range.numpy()):
+        mel[lo:hi, m] = packed[m, :hi - lo]
+        assert not packed[m, hi - lo:].any()
+    np.testing.assert_array_equal(mel, tables.mel.numpy())
 
 
 def test_cpu_tensor_runs_plain_version_without_launch():

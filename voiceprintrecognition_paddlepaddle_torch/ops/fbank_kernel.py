@@ -1,22 +1,29 @@
 """Fused Kaldi fbank straight from the waveform: the counterpart of the
 JAX package's ``ops/pallas_fbank.py``.
 
-DC removal, pre-emphasis (with kaldi's replicated first sample) and the
-povey window are linear in the frame samples, so they fold into one
-``(400, 512)`` DFT matrix (``folded_dft_np``, cos | sin, Nyquist bin
-dropped because its mel weight is 0):
+``fbank_fused`` launches the CUDA kernel ``csrc/fbank.cu`` on a CUDA
+tensor: per frame, in fp32 and in kaldi's order, DC removal,
+pre-emphasis (with kaldi's replicated first sample), the povey window,
+a 512-point real FFT (a packed 256-point complex FFT and its split),
+the power of bins 0..255 (the Nyquist bin's mel weight is 0), each mel
+filter's nonzero weights and the log. The host builds its tables
+(``fbank_tables``): the window, the twiddles W_512^k in float64 rounded to
+fp32, and the mel weights packed per filter.
+
+On a CPU tensor it runs ``fbank_fused_reference``, the plain version: DC
+removal, pre-emphasis and the window fold into one ``(400, 512)`` DFT
+matrix (``folded_dft_np``, cos | sin, Nyquist dropped), so
 
     spec[t] = wave[160 t : 160 t + 400] @ Bfold
     out[t]  = log(max((re^2 + im^2) @ mel, FLT_EPSILON))
 
-``fbank_fused`` launches the CUDA kernel ``csrc/fbank.cu`` on a CUDA
-tensor (fp32 FMA for the DFT) and runs ``fbank_fused_reference``, the same
-formulation in plain fp32 torch, on a CPU tensor. It never falls back
-from CUDA to the plain version. CMN stays outside, in
+in plain fp32 torch: a formulation independent of the kernel's FFT. It
+never falls back from CUDA to the plain version. CMN stays outside, in
 ``features.apply_cmn_and_mask``.
 """
 
 import ctypes
+from collections import namedtuple
 from functools import lru_cache
 
 import numpy as np
@@ -24,8 +31,8 @@ import torch
 
 from . import kaldi
 
-__all__ = ["folded_dft_np", "fbank_fused", "fbank_fused_reference",
-           "fbank_tables"]
+__all__ = ["folded_dft_np", "FbankTables", "fbank_fused",
+           "fbank_fused_reference", "fbank_tables"]
 
 _FRAME_LEN, _SHIFT, _N_FFT = 400, 160, 512   # 25/10 ms at 16 kHz
 
@@ -54,6 +61,12 @@ def folded_dft_np(frame_len, n_fft, preemph=0.97):
     return c
 
 
+# bfold, mel: the plain version's; window, twiddles, mel_packed, mel_range:
+# the kernel's
+FbankTables = namedtuple(
+    "FbankTables", "bfold mel window twiddles mel_packed mel_range")
+
+
 @lru_cache(maxsize=None)
 def _tables_np(sr, n_mels):
     if sr != 16000:
@@ -67,22 +80,34 @@ def _tables_np(sr, n_mels):
         raise ValueError("Nyquist bin carries mel weight; it cannot be "
                          "dropped from the folded DFT")
     mel = np.ascontiguousarray(mel[:keep])
-    # [first, last + 1) nonzero bin of each filter, for the kernel's sparse
-    # mel product (the weights outside are exactly 0)
+    # [first, last + 1) nonzero bin of each filter, and its weights from
+    # column 0, zero-padded to a multiple of 4 bins (the kernel's 16-byte
+    # steps), for the kernel's sparse mel product (the weights outside are
+    # exactly 0)
     rng = np.zeros((n_mels, 2), np.int32)
     for m in range(n_mels):
         nz = np.flatnonzero(mel[:, m])
         if nz.size:
             rng[m] = nz[0], nz[-1] + 1
-    return bfold, mel, rng
+    width = max(1, int(np.max(rng[:, 1] - rng[:, 0])))
+    packed = np.zeros((n_mels, -(-width // 4) * 4), np.float32)
+    for m, (lo, hi) in enumerate(rng):
+        packed[m, :hi - lo] = mel[lo:hi, m]
+    # W_512^k = (cos, -sin)(2 pi k / 512), in float64, rounded once
+    ang = 2.0 * np.pi * np.arange(_N_FFT, dtype=np.float64) / _N_FFT
+    twiddles = np.stack([np.cos(ang), -np.sin(ang)], 1).astype(np.float32)
+    return FbankTables(bfold, mel, kaldi._window_np("povey", _FRAME_LEN),
+                       twiddles, packed, rng)
 
 
 @lru_cache(maxsize=None)
 def fbank_tables(sr, n_mels, device):
-    """``(Bfold (400, 512) fp32, mel (256, n_mels) fp32, mel_range
-    (n_mels, 2) int32)`` on ``device``, built once per process."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in _tables_np(sr, n_mels))
+    """``FbankTables`` on ``device``, built once per process: Bfold
+    (400, 512) and mel (256, n_mels) for the plain version; window (400,),
+    twiddles (512, 2), mel_packed (n_mels, widest filter rounded up to
+    4 bins) fp32 and mel_range (n_mels, 2) int32 for the kernel."""
+    return FbankTables(*(torch.from_numpy(a).to(device)
+                         for a in _tables_np(sr, n_mels)))
 
 
 def _num_frames(num_samples):
@@ -95,7 +120,8 @@ def _num_frames(num_samples):
 def fbank_fused_reference(waves, sr=16000, n_mels=80):
     """Plain fp32 torch version of the kernel: ``(B, L) -> (B, T, n_mels)``
     raw log-mel."""
-    bfold, mel, _ = fbank_tables(sr, n_mels, waves.device)
+    tables = fbank_tables(sr, n_mels, waves.device)
+    bfold, mel = tables.bfold, tables.mel
     t = _num_frames(waves.shape[-1])
     frames = waves[:, :(t - 1) * _SHIFT + _FRAME_LEN].unfold(
         -1, _FRAME_LEN, _SHIFT)
@@ -110,7 +136,7 @@ def _entry():
     from .._build import kernel_library
     fn = kernel_library().lib.vpr_fbank
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     return fn
 
@@ -132,13 +158,14 @@ def fbank_fused(waves, sr=16000, n_mels=80):
     waves = waves.contiguous()
     b, length = waves.shape
     t = _num_frames(length)
-    bfold, mel, mel_range = fbank_tables(sr, n_mels, waves.device)
+    tables = fbank_tables(sr, n_mels, waves.device)
     out = torch.empty((b, t, n_mels), dtype=torch.float32,
                       device=waves.device)
     from .._build import check
-    err = _entry()(waves.data_ptr(), bfold.data_ptr(), mel.data_ptr(),
-                   mel_range.data_ptr(), out.data_ptr(), b, length, t,
-                   _FRAME_LEN, _SHIFT, _N_FFT // 2, n_mels,
+    err = _entry()(waves.data_ptr(), tables.window.data_ptr(),
+                   tables.twiddles.data_ptr(), tables.mel_packed.data_ptr(),
+                   tables.mel_range.data_ptr(), out.data_ptr(), b, length, t,
+                   n_mels, tables.mel_packed.shape[1],
                    torch.cuda.current_stream(waves.device).cuda_stream)
     check(err, "vpr_fbank")
     fbank_fused.launches += 1
