@@ -62,6 +62,17 @@ Phases (any failure raises and the script exits non-zero):
             serial requests, micro-batched requests/s with 64 clients
             over 512 requests, the diarization wall time, and where one
             request's time goes (HTTP, decode, the b1 and b64 embed stages)
+9. backbones the six other configs (tdnn, ecapa_tdnn, res2net, resnet_se,
+            eres2net, eres2netv2) at full width with random weights from a
+            seed: Predictor(device="cuda") over 32 seeded 1-8 s clips in
+            chunks of 8 (ragged, padded to their buckets), the fbank
+            kernel's launches rising by the chunks and the FCM and trunk
+            kernels' not moving, every embedding held against
+            Predictor(device="cpu") on the same clips; padded against
+            exact-length cos printed without a bar; the whole embed at b64 x
+            3 s timed (featurize, model); then the four other feature
+            methods and two non-stock Fbank settings on the card against
+            the CPU
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.
@@ -108,6 +119,26 @@ CONFIG = {
                                   "num_speakers": 2796, "num_blocks": 0}},
 }
 
+# model_conf of the six other configs/*.yml (kept as dicts, as CONFIG)
+_HEAD = {"classifier_type": "Cosine", "num_speakers": 2796, "num_blocks": 0}
+BACKBONE_CONFS = {
+    "tdnn": {"model": "TDNN", "model_args": {
+        "embd_dim": 192, "channels": 512, "pooling_type": "ASP"},
+        "classifier": _HEAD},
+    "ecapa_tdnn": {"model": "EcapaTdnn", "model_args": {
+        "embd_dim": 192, "pooling_type": "ASP",
+        "channels": [512, 512, 512, 512, 1536]}, "classifier": _HEAD},
+    "res2net": {"model": "Res2Net", "model_args": {
+        "embd_dim": 192, "pooling_type": "ASP", "m_channels": 32},
+        "classifier": _HEAD},
+    "resnet_se": {"model": "ResNetSE", "model_args": {
+        "embd_dim": 192, "pooling_type": "ASP"}, "classifier": _HEAD},
+    "eres2net": {"model": "ERes2Net", "model_args": {
+        "embd_dim": 192, "m_channels": 32}, "classifier": _HEAD},
+    "eres2netv2": {"model": "ERes2NetV2", "model_args": {
+        "embd_dim": 192, "m_channels": 32}, "classifier": _HEAD},
+}
+
 FBANK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/fbank.cu"
 TRUNK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/campplus_trunk.cu"
 FCM_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/fcm.cu"
@@ -119,9 +150,10 @@ TRUNK_TPU_LOOPED = ("voiceprintrecognition_paddlepaddle_tpu/models/"
 FCM_TPU = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:251"
 FCM_TPU_CHUNKED = "voiceprintrecognition_paddlepaddle_tpu/models/pallas_fcm.py:442"
 
-# published H100 SXM peaks (dense): bf16 tensor cores, fp32 outside the
-# tensor cores, HBM3 bytes/s
+# published H100 SXM peaks (dense): bf16 and TF32 tensor cores, fp32
+# outside the tensor cores, HBM3 bytes/s
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -871,6 +903,213 @@ def serve_phase(model, dev, card, rng):
     return out
 
 
+def median_ms(fn, iters):
+    """The median of ``iters`` CUDA-event times of one ``fn()``, after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def product_flops(model, x):
+    """Twice the multiply-adds of every conv and linear layer in one
+    forward of ``model`` on ``x`` (counted from the layers' output shapes
+    by forward hooks)."""
+    total = [0]
+
+    def count(m, _, out):
+        if isinstance(m, torch.nn.Linear):
+            total[0] += 2 * out.numel() * m.in_features
+        else:
+            total[0] += 2 * out.numel() * (m.in_channels // m.groups) \
+                * math.prod(m.kernel_size)
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d,
+                               torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def kernel_split(fn, n_top=4):
+    """Device time of one ``fn()`` by kernel, from ``torch.profiler``
+    (CUDA activity): the traced total, the share in conv / matmul kernels
+    (names with gemm, conv, xmma or cutlass) and the ``n_top`` kernels by
+    time. ``traced_ms`` is 0 where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3)
+                   for e in prof.key_averages()), key=lambda r: -r[1])
+    total = sum(ms_ for _, ms_ in rows)
+    products = sum(ms_ for k, ms_ in rows if any(
+        w in k.lower() for w in ("gemm", "conv", "xmma", "cutlass")))
+    return {"traced_ms": total,
+            "products_share": products / total if total else None,
+            "top": [(k[:70], ms_) for k, ms_ in rows[:n_top]]}
+
+
+def row_cos(a, b):
+    a, b = a.double(), b.double()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def check_feature_methods(features, fk, rng, dev):
+    """Phase 9, the front end: the four other feature methods and two
+    non-stock Fbank settings on the card against the CPU, on b4 x 3 s.
+    Bars: log features max |d| < 2e-2 and p99 < 1e-3, linear ones max |d|
+    < 1e-4 of their largest value; the non-stock Fbank launches no fbank
+    kernel."""
+    w = (rng.randn(4, 48000) * 0.1).astype(np.float32)
+    out = {}
+    for method, args, is_log in (
+            ("MFCC", {}, True), ("MelSpectrogram", {}, False),
+            ("LogMelSpectrogram", {}, True), ("Spectrogram", {}, False),
+            ("Fbank", {"n_mels": 80, "window_type": "hamming"}, True),
+            ("Fbank", {"n_mels": 80, "snip_edges": False,
+                       "use_energy": True}, True)):
+        name = " ".join([method] + [f"{k}={v}" for k, v in args.items()])
+        launches = fk.fbank_fused.launches
+        got = features.compute_feature(torch.from_numpy(w).to(dev), method,
+                                       sr=16000, **args)
+        torch.cuda.synchronize()
+        ref = features.compute_feature(torch.from_numpy(w), method, sr=16000,
+                                       **args)
+        d = (got.cpu().double() - ref.double()).abs()
+        mx, p99 = float(d.max()), float(torch.quantile(d.flatten(), 0.99))
+        scale = float(ref.abs().max())
+        ok = (got.shape == ref.shape and bool(torch.isfinite(got).all())
+              and fk.fbank_fused.launches == launches
+              and (mx < 2e-2 and p99 < 1e-3 if is_log
+                   else mx < 1e-4 * scale))
+        log(f"[backbones] {name}: card vs CPU {tuple(got.shape)} max|d|="
+            f"{mx:.3e} p99={p99:.3e} scale {scale:.3e} (bars "
+            f"{'2e-2, p99 1e-3' if is_log else '1e-4 of the scale'})")
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+        out[name] = {"max_abs_err": mx, "p99_abs_err": p99, "scale": scale}
+    return out
+
+
+def backbones_phase(dev, card):
+    """Phase 9: the six other configs served through Predictor on the card
+    at full width, held against Predictor(device="cpu"), and timed."""
+    from voiceprintrecognition_paddlepaddle_torch.models import build_model
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+    from voiceprintrecognition_paddlepaddle_torch.ops import features
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.utils.utils import \
+        dict_to_object
+
+    t0 = time.perf_counter()
+    precision = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+                 "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    log(f"[backbones] precision: the Predictor keeps PyTorch's defaults, "
+        f"{precision}: cuDNN convs in TF32, matmuls in fp32")
+    rng = np.random.RandomState(SEED + 9)
+    clips = [(rng.randn(int(rng.uniform(1.0, 8.0) * 16000)) * 0.1)
+             .astype(np.float32) for _ in range(32)]
+    chunk, n_chunks = 8, 4
+    w64 = torch.from_numpy(
+        (rng.randn(64, 48000) * 0.1).astype(np.float32)).to(dev)
+    out = {"precision": precision}
+    work = tempfile.mkdtemp(prefix="vpr_backbones_")
+    try:
+        for key, conf in BACKBONE_CONFS.items():
+            cfg = dict(CONFIG, model_conf=conf)
+            model = build_model(80, dict_to_object(cfg))
+            model.load_state_dict(jax_to_torch_state(
+                random_flax_variables(model, SEED)))
+            path = os.path.join(work, f"{key}.pt")
+            torch.save(model.state_dict(), path)
+            pred = Predictor(cfg, model_path=path, device="cuda")
+            reset_launches(fk, fkm, tk)
+            embs = pred.predict_batch(clips, batch_size=chunk)
+            launches = read_launches(fk, fkm, tk)
+            ref = Predictor(cfg, model_path=path, device="cpu").predict_batch(
+                clips, batch_size=chunk)
+            got, want = torch.from_numpy(embs), torch.from_numpy(ref)
+            cos = row_cos(got, want)
+            rel = float(((got - want).abs().amax(-1)
+                         / want.abs().amax(-1)).max())
+            with torch.no_grad():
+                exact = torch.cat([pred.model(pred._audio_featurizer(
+                    torch.from_numpy(c).to(dev))) for c in clips[:8]]).cpu()
+            pad_cos = row_cos(exact, got[:8])
+            with torch.no_grad():
+                feats = pred._audio_featurizer(w64)
+                t = {"featurize_ms": median_ms(
+                         lambda: pred._audio_featurizer(w64), 5),
+                     "model_ms": median_ms(lambda: pred.model(feats), 5),
+                     "embed_ms": median_ms(
+                         lambda: pred.model(pred._audio_featurizer(w64)), 5)}
+            t["utt_per_s"] = 64e3 / t["embed_ms"]
+            split = kernel_split(lambda: pred.model(feats))
+            flops = product_flops(pred.model, feats)
+            t["model_gflop"] = flops / 1e9
+            t["model_tflop_per_s"] = flops / t["model_ms"] / 1e9
+            params = sum(p.numel() for p in pred.model.parameters())
+            log(f"[backbones] {key} ({conf['model']}, {params / 1e6:.2f} M "
+                f"parameters): predict_batch {embs.shape} in {n_chunks} chunks"
+                f", launches {launches}; card vs CPU min cos "
+                f"{float(cos.min()):.6f} (bar 0.999), largest max|d|/scale "
+                f"{rel:.3e}; padded vs exact length on the card, 8 clips: "
+                f"min cos {float(pad_cos.min()):.6f} (no bar)")
+            log(f"[times] {card}: {key} whole embed b64 x 3 s "
+                f"{t['embed_ms']:.3f} ms = {t['utt_per_s']:.1f} utt/s "
+                f"(featurize {t['featurize_ms']:.3f} ms, model "
+                f"{t['model_ms']:.3f} ms; CUDA-event medians of 5); the "
+                f"model's convs and linears {t['model_gflop']:.1f} GFLOP, "
+                f"{t['model_tflop_per_s']:.1f} TFLOP/s, "
+                f"{t['model_tflop_per_s'] * 1e12 / PEAK_TF32:.1%} of the TF32 "
+                f"peak")
+            log(f"[times] {card}: {key} model b64 x 3 s by kernel "
+                f"(torch.profiler): traced {split['traced_ms']:.3f} ms, "
+                f"conv / matmul kernels {split['products_share']}; top "
+                + "; ".join(f"{k} {v:.3f} ms" for k, v in split["top"]))
+            if not (embs.shape == (32, 192) and np.isfinite(embs).all()
+                    and launches["fbank"] == n_chunks
+                    and launches["fcm"] == 0
+                    and launches["campplus_trunk"] == 0
+                    and float(cos.min()) >= 0.999):
+                raise AssertionError(f"{key} on the card fails its checks")
+            out[key] = {"model": conf["model"], "parameters": params,
+                        "launches": launches, "min_cos_vs_cpu":
+                        float(cos.min()), "max_rel_err_vs_cpu": rel,
+                        "padded_vs_exact_min_cos": float(pad_cos.min()),
+                        "kernel_split": split, **t}
+            del pred, model
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["features"] = check_feature_methods(features, fk, rng, dev)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[backbones] phase 9 wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -1130,6 +1369,10 @@ def main():
 
     # ---- 8. serve: diarization, the narrow path, HTTP -------------------
     served = serve_phase(model, dev, card, rng)
+
+    # ---- 9. backbones: the six other configs, the other front ends ------
+    backbones = backbones_phase(dev, card)
+    print(json.dumps({"backbones": backbones, "card": card}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     f16, f3 = fcm_t["b32 x 16 s"], fcm_t["b256 x 3 s"]

@@ -95,10 +95,37 @@ def test_masked_mean_var_matches_jax(ddof):
 
 
 def test_build_model_serves_campplus_only():
+    """``build_model`` raised for every backbone but CAM++ while the port
+    had CAM++ only. It now builds the backbone each config in
+    ``configs/`` names, with the JAX package's arguments (YAML lists as
+    tuples), and raises ``ValueError`` for an unknown name, as JAX does."""
+    import glob
+    import os
+
+    import yaml
+
+    from voiceprintrecognition_paddlepaddle_torch.models import MODELS
+    from voiceprintrecognition_paddlepaddle_tpu.models import \
+        MODELS as JAX_MODELS
+
+    assert set(MODELS) == set(JAX_MODELS)
     cfg = dict_to_object({"model_conf": {"model": "CAMPPlus",
                                          "model_args": {"embd_dim": 192}}})
     m = build_model(80, cfg)
     assert m.embd_dim == 192 and m.init_channels == 128
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    built = set()
+    for path in glob.glob(os.path.join(root, "configs", "*.yml")):
+        with open(path, encoding="utf-8") as f:
+            conf = yaml.safe_load(f)
+        if "model_conf" not in conf:
+            continue
+        model = build_model(80, dict_to_object(conf))
+        assert type(model).__name__ == conf["model_conf"]["model"], path
+        built.add(conf["model_conf"]["model"])
+    assert built == set(MODELS)
     cfg.model_conf.model = "EcapaTdnn"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert type(build_model(80, cfg)).__name__ == "EcapaTdnn"
+    cfg.model_conf.model = "WavLM"
+    with pytest.raises(ValueError, match="unknown model"):
         build_model(80, cfg)

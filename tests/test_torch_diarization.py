@@ -29,6 +29,7 @@ import torch
 import yaml
 from flax import serialization
 
+import torch_jax_native  # noqa: F401 (JAX's native library, locked)
 from test_torch_helpers import (FULL, calibrate_bn_stats, calibration_clips,
                                 cos_min, synth_campplus, tone)
 from voiceprintrecognition_paddlepaddle_torch.infer_utils import der as tder

@@ -102,15 +102,48 @@ def test_frame_counts_match_jax(n):
                                  dict(window_type="hamming"),
                                  dict(use_energy=True)])
 def test_non_stock_options_raise(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfeat.AudioFeaturizer("Fbank", {"n_mels": 80, **bad})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tkaldi.fbank(torch.zeros(1, 1600), n_mels=80, **bad)
+    """These options raised ``NotImplementedError`` while the port had the
+    stock options only. Each now takes the plain ``kaldi.fbank`` (no
+    kernel launch) and computes the JAX Fbank within the fbank bars, raw
+    and CMN'd. Dither cannot match JAX's draws:
+    both raise ``ValueError`` without a random source, and the port's
+    generator gives the same features twice."""
+    w = _waves(7, 2, 16000)
+    opts = {"sr": 16000, "n_mels": 80, **bad}
+    before = fbank_fused.launches
+    if "dither" in bad:
+        with pytest.raises(ValueError, match="PRNG"):
+            jkaldi.fbank(w, **opts)
+        with pytest.raises(ValueError, match="Generator"):
+            tkaldi.fbank(torch.from_numpy(w), **opts)
+        a, b = (tfeat.compute_feature(
+            torch.from_numpy(w), "Fbank", rng=torch.Generator().manual_seed(3),
+            **opts) for _ in range(2))
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert tfeat.AudioFeaturizer("Fbank", opts).dither == 1.0
+    else:
+        ref = np.asarray(jkaldi.fbank(w, **opts))
+        _assert_fbank_bar(tkaldi.fbank(torch.from_numpy(w), **opts).numpy(),
+                          ref)
+        ref = np.asarray(jfeat.AudioFeaturizer("Fbank", opts)(w))
+        got = tfeat.AudioFeaturizer("Fbank", opts)(torch.from_numpy(w))
+        _assert_fbank_bar(got.numpy(), ref)
+    assert fbank_fused.launches == before
 
 
 def test_other_feature_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tfeat.AudioFeaturizer("MelSpectrogram", {})
+    """The default method, MelSpectrogram, raised ``NotImplementedError``
+    while the port had Fbank only; it now computes the JAX features
+    (< 1e-4 of their scale), and an unknown method raises ``ValueError``
+    in both packages."""
+    w = _waves(8, 2, 16000)
+    ref = np.asarray(jfeat.AudioFeaturizer("MelSpectrogram", {})(w))
+    got = tfeat.AudioFeaturizer("MelSpectrogram", {})(torch.from_numpy(w))
+    assert got.shape == ref.shape == (2, 126, 64)
+    assert np.abs(got.numpy() - ref).max() < 1e-4 * np.abs(ref).max()
+    for mod in (tfeat, jfeat):
+        with pytest.raises(ValueError, match="unknown feature method"):
+            mod.AudioFeaturizer("Chroma", {})
 
 
 # ---- numpy emulation of the CUDA kernel's algorithm (csrc/fbank.cu) -------

@@ -371,3 +371,67 @@ def test_http_round_trip_on_cuda(predictor):
     assert tk.trunk_stats.launches > before
     assert batcher.batches < batcher.items == 8
 
+
+
+# ---- the six other backbones and the other front ends ---------------------
+@pytest.mark.parametrize("key", ["tdnn", "ecapa_tdnn", "res2net",
+                                 "resnet_se", "eres2net", "eres2netv2"])
+def test_backbone_serves_on_cuda(cuda, key, tmp_path):
+    """Each of the six other configs at full width: Predictor(device="cuda")
+    over ragged 1-8 s clips in chunks of 4 launches the fbank kernel once a
+    chunk and neither CAM++ kernel, and holds every embedding within
+    cos 0.999 of Predictor(device="cpu")."""
+    from chip_smoke import (BACKBONE_CONFS, CONFIG, random_flax_variables,
+                            row_cos)
+    from voiceprintrecognition_paddlepaddle_torch.models import build_model
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.utils.utils import \
+        dict_to_object
+
+    cfg = dict(CONFIG, model_conf=BACKBONE_CONFS[key])
+    model = build_model(80, dict_to_object(cfg))
+    model.load_state_dict(jax_to_torch_state(random_flax_variables(model, 1)))
+    torch.save(model.state_dict(), str(tmp_path / "model.pt"))
+    rng = np.random.RandomState(12)
+    clips = [(rng.randn(int(rng.uniform(1.0, 8.0) * 16000)) * 0.1).astype(
+        np.float32) for _ in range(8)]
+    pred = Predictor(cfg, model_path=str(tmp_path / "model.pt"),
+                     device="cuda")
+    before = (fk.fbank_fused.launches, fkm.fcm_fused.launches,
+              tk.trunk_stats.launches)
+    got = pred.predict_batch(clips, batch_size=4)
+    torch.cuda.synchronize()
+    assert (fk.fbank_fused.launches - before[0], fkm.fcm_fused.launches,
+            tk.trunk_stats.launches) == (2, before[1], before[2])
+    want = Predictor(cfg, model_path=str(tmp_path / "model.pt"),
+                     device="cpu").predict_batch(clips, batch_size=4)
+    assert got.shape == want.shape == (8, 192)
+    assert float(row_cos(torch.from_numpy(got),
+                         torch.from_numpy(want)).min()) >= 0.999
+
+
+@pytest.mark.parametrize("method,args", [
+    ("MFCC", {}), ("MelSpectrogram", {}), ("LogMelSpectrogram", {}),
+    ("Spectrogram", {}), ("Fbank", {"n_mels": 80, "window_type": "hamming"}),
+    ("Fbank", {"n_mels": 80, "snip_edges": False, "use_energy": True})])
+def test_feature_methods_on_cuda_match_cpu(cuda, method, args):
+    """The other front ends run plain torch on the card, no fbank kernel:
+    log features within 2e-2 (p99 1e-3) of the CPU, linear ones within
+    1e-4 of their scale."""
+    from voiceprintrecognition_paddlepaddle_torch.ops import features
+
+    w = _waves(13, 4, 48000)
+    before = fk.fbank_fused.launches
+    got = features.compute_feature(w.to(cuda), method, sr=16000, **args)
+    torch.cuda.synchronize()
+    assert fk.fbank_fused.launches == before
+    ref = features.compute_feature(w, method, sr=16000, **args)
+    d = (got.cpu() - ref).abs()
+    assert got.shape == ref.shape
+    if method in ("MelSpectrogram", "Spectrogram"):
+        assert float(d.max()) < 1e-4 * float(ref.abs().max())
+    else:
+        assert float(d.max()) < 2e-2
+        assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3

@@ -3,7 +3,9 @@
 One synthetic paddle-layout state dict (``_synth_paddle_state``, with
 non-trivial BN statistics) goes to flax through ``convert_state`` and to
 the port through ``jax_to_torch_state``, so both sides hold the same
-weights. Inputs are numpy arrays made from seeds and handed to both.
+weights. The other backbones take seeded values in the parameter tree of
+their flax ``init``, BN statistics included (``synth_flax``). Inputs are
+numpy arrays made from seeds and handed to both.
 """
 
 import numpy as np
@@ -13,6 +15,79 @@ from tools.convert_paddle_checkpoint import SPECS, convert_state
 
 FULL = dict(embd_dim=192)                                  # configs/cam++.yml
 SMALL = dict(embd_dim=32, init_channels=32)
+
+# the six other backbones at narrow widths (a few blocks, 8-96 channels)
+NARROW = {
+    "TDNN": dict(channels=32, embd_dim=16),
+    "EcapaTdnn": dict(channels=(32, 32, 32, 32, 96), embd_dim=16,
+                      attention_channels=16, res2net_scale=4,
+                      se_channels=16),
+    "ResNetSE": dict(layers=(1, 2, 1, 1), num_filters=(8, 16, 16, 32),
+                     embd_dim=16),
+    "Res2Net": dict(m_channels=8, layers=(1, 2, 1, 1), embd_dim=16),
+    "ERes2Net": dict(num_blocks=(1, 1, 2, 1), m_channels=8, embd_dim=16,
+                     two_emb_layer=True),
+    "ERes2NetV2": dict(num_blocks=(1, 2, 1, 1), m_channels=8, embd_dim=16),
+}
+
+
+def seeded_variables(tree, rng):
+    """Seeded values for a flax tree of shapes (``jax.eval_shape`` of
+    ``init``): kernels scaled by fan-in, BN scales / statistics and
+    biases drawn away from their 1 / 0 starts, PReLU slopes, the Cosine
+    head's weight."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = seeded_variables(v, rng)
+            continue
+        shape = tuple(v.shape)
+        if k == "kernel":
+            x = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif k in ("scale", "var"):
+            x = rng.uniform(0.5, 1.5, shape)
+        elif k in ("bias", "mean"):
+            x = rng.normal(0.0, 0.2, shape)
+        elif k == "prelu_alpha":
+            x = rng.uniform(0.1, 0.4, shape)
+        elif k == "weight":
+            x = rng.randn(*shape)
+        else:
+            raise KeyError(k)
+        out[k] = x.astype(np.float32)
+    return out
+
+
+def synth_flax(jmodel, tmodel, x, seed=0):
+    """Seeded weights in the parameter tree of ``jmodel.init`` on ``x``
+    (``seeded_variables``), loaded strictly into the port's ``tmodel``
+    (fp32, eval). Returns the numpy variables."""
+    import flax
+    import jax
+
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+
+    shapes = flax.core.unfreeze(jax.eval_shape(
+        jmodel.init, jax.random.PRNGKey(seed), x))
+    v = seeded_variables(shapes, np.random.RandomState(seed))
+    v.setdefault("params", {})
+    v.setdefault("batch_stats", {})
+    tmodel.load_state_dict(jax_to_torch_state(v), strict=True)
+    tmodel.eval().requires_grad_(False)
+    return v
+
+
+def synth_backbone(name, args, input_size=24, seed=0):
+    """-> (flax model, flax variables (numpy), port model in fp32 eval)."""
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        MODELS as TORCH_MODELS
+    from voiceprintrecognition_paddlepaddle_tpu.models import MODELS
+
+    jm = MODELS[name](input_size=input_size, **args)
+    tm = TORCH_MODELS[name](input_size, **args)
+    v = synth_flax(jm, tm, np.zeros((1, 64, input_size), np.float32), seed)
+    return jm, v, tm
 
 
 def synth_campplus(args, input_size=80, seed=0):

@@ -16,6 +16,7 @@ import time
 import numpy as np
 import pytest
 
+from torch_jax_native import require_jax_native
 from voiceprintrecognition_paddlepaddle_torch import _build
 from voiceprintrecognition_paddlepaddle_torch.data_utils.collate import \
     bucket_length
@@ -31,7 +32,10 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "ops.audio", "native", "native.audio_native", "infer_utils",
            "infer_utils.speaker_diarization", "infer_utils.der",
            "infer_utils.micro_batcher", "utils.utils", "serve",
-           "infer_contrast", "infer_speaker_diarization"]
+           "infer_contrast", "infer_speaker_diarization", "models",
+           "models.layers", "models.pooling", "models.tdnn",
+           "models.ecapa_tdnn", "models.resnet_se", "models.res2net",
+           "models.eres2net", "models.fc", "ops.kaldi"]
 
 
 def test_importing_the_port_leaves_jax_out():
@@ -68,6 +72,7 @@ def test_bucket_length_matches_jax(n):
 
 
 def test_audio_segment_matches_jax():
+    require_jax_native()
     path = os.path.join(ROOT, "dataset", "a_1.wav")
     ours, theirs = AudioSegment.from_file(path), JaxAudioSegment.from_file(path)
     np.testing.assert_array_equal(ours.samples, theirs.samples)
@@ -90,9 +95,9 @@ def test_audio_segment_matches_jax():
 
 
 def test_default_feature_method_matches_jax_and_is_not_ported():
-    """Both packages default to MelSpectrogram; the port has no
-    MelSpectrogram yet, so a featurizer that names no method raises
-    instead of computing another feature."""
+    """Both packages default to MelSpectrogram. The port raised for it
+    while it had Fbank only; a featurizer that names no method now
+    computes the JAX package's default features."""
     import inspect
 
     import torch
@@ -104,10 +109,13 @@ def test_default_feature_method_matches_jax_and_is_not_ported():
         for fn in (mod.compute_feature, mod.AudioFeaturizer.__init__):
             param = inspect.signature(fn).parameters["feature_method"]
             assert param.default == "MelSpectrogram", (mod.__name__, fn)
-    with pytest.raises(NotImplementedError, match="MelSpectrogram"):
-        tfeat.AudioFeaturizer()
-    with pytest.raises(NotImplementedError, match="MelSpectrogram"):
-        tfeat.compute_feature(torch.zeros(1, 16000))
+    w = (np.random.RandomState(4).randn(2, 16000) * 0.1).astype(np.float32)
+    ref = np.asarray(jfeat.AudioFeaturizer()(w))
+    got = tfeat.AudioFeaturizer()(torch.from_numpy(w)).numpy()
+    assert got.shape == ref.shape and tfeat.AudioFeaturizer().feature_dim == 64
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+    got = tfeat.compute_feature(torch.from_numpy(w), sr=16000).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
 
 
 def test_wav_roundtrip(tmp_path):
@@ -195,3 +203,25 @@ def test_chip_smoke_config_is_cam_yml_and_its_weights_load():
     model.load_state_dict(state)
     bn = model.TDNNLayer_0._NonLinear_0.BatchNorm_0
     assert not torch.allclose(bn.running_var, torch.ones_like(bn.running_var))
+
+
+def test_chip_smoke_backbones_are_the_configs():
+    """chip_smoke.py phase 9 keeps the other six configs' ``model_conf`` as
+    dicts; they are the YAML files', and each builds its backbone."""
+    import yaml
+
+    import chip_smoke
+    from voiceprintrecognition_paddlepaddle_torch.models import build_model
+    from voiceprintrecognition_paddlepaddle_torch.utils.utils import \
+        dict_to_object
+
+    for key, conf in chip_smoke.BACKBONE_CONFS.items():
+        with open(os.path.join(ROOT, "configs", f"{key}.yml"),
+                  encoding="utf-8") as f:
+            cfg = yaml.safe_load(f)
+        assert conf == cfg["model_conf"], key
+        for k in ("dataset_conf", "preprocess_conf"):
+            assert chip_smoke.CONFIG[k] == cfg[k], (key, k)
+        model = build_model(80, dict_to_object(dict(chip_smoke.CONFIG,
+                                                    model_conf=conf)))
+        assert type(model).__name__ == conf["model"]

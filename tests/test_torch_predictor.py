@@ -4,8 +4,10 @@ demo wavs against the JAX exact-length embedding (JAX features and
 surface (register / recognition / contrast / remove_user / retrieve, the
 pickle index, the path-traversal guard), the 16 s bucket through the FCM
 kernel's module, the plain branch past the 32 s bucket, and the choice of
-path by configuration: a CAM++ off the stock widths serves through the
-plain model and matches the JAX ``Predictor`` there (cos > 0.9999).
+path by configuration: a CAM++ off the stock widths, a dithered Fbank
+and each of the six other backbones serve through the plain model, and
+match the JAX ``Predictor`` there (cos > 0.9999); an ECAPA-TDNN config
+serves over HTTP and through the command-line modules.
 
 The port pads each clip to its bucket and takes the masked path, whose
 CAM context is length-aware, so it is compared with the exact-length
@@ -25,7 +27,11 @@ import yaml
 
 from flax import serialization
 
-from test_torch_helpers import FULL, SMALL, cos_min, synth_campplus
+import torch_jax_native  # noqa: F401 (JAX's native library, locked)
+from test_torch_helpers import (FULL, NARROW, SMALL, cos_min, synth_backbone,
+                                synth_campplus)
+from voiceprintrecognition_paddlepaddle_torch import (
+    infer_contrast, infer_speaker_diarization, serve)
 from voiceprintrecognition_paddlepaddle_torch import predict as tpredict
 from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
@@ -272,3 +278,114 @@ def test_narrow_campplus_serves_and_matches_jax(narrow, monkeypatch):
     one = pred.predict(WAVS[0])
     assert cos_min(jpred.predict(WAVS[0])[None], one[None]) > 0.9999
 
+
+
+def test_dither_keeps_the_kernel_path_off(world, monkeypatch):
+    """As JAX ``predict.py:132``: a dithered Fbank front end never builds
+    the kernel path. The plain path draws its dither from a generator
+    seeded 0 for every batch (JAX's fixed key), so a batch embeds the same
+    twice, close to but not at the undithered embedding."""
+    model_path, _, _ = world
+    cfg = _configs()
+    cfg["preprocess_conf"] = {"feature_method": "Fbank", "method_args": {
+        "sr": 16000, "n_mels": 80, "dither": 1e-4}}
+    rng = np.random.RandomState(9)
+    clips = [(rng.randn(n) * 0.1).astype(np.float32) for n in (16000, 12000)]
+    undithered = _predictor(world).predict_batch(clips)
+    monkeypatch.setattr(
+        tpredict, "make_campplus_masked_embed_fn",
+        lambda *a: pytest.fail("the kernel path was built"))
+    pred = Predictor(cfg, model_path=model_path, device="cpu")
+    assert pred._embed is None and pred._audio_featurizer.dither == 1e-4
+    got = pred.predict_batch(clips)
+    np.testing.assert_array_equal(got, pred.predict_batch(clips))
+    assert not np.array_equal(got, undithered)
+    assert cos_min(undithered, got) > 0.99
+
+
+def _save_backbone(name, root, seed):
+    """A narrow ``name`` with seeded weights, saved for both Predictors,
+    and its configuration (configs/cam++.yml's with ``model_conf``
+    replaced)."""
+    _, v, tm = synth_backbone(name, NARROW[name], input_size=80, seed=seed)
+    torch.save(tm.state_dict(), str(root / "model.pt"))
+    (root / "model.msgpack").write_bytes(serialization.msgpack_serialize(v))
+    cfg = _configs()
+    cfg["model_conf"] = {"model": name, "model_args": {
+        k: list(a) if isinstance(a, tuple) else a
+        for k, a in NARROW[name].items()}}
+    return cfg, str(root / "model.pt"), str(root / "model.msgpack")
+
+
+@pytest.mark.parametrize("name", sorted(NARROW))
+def test_backbone_serves_and_matches_jax(name, tmp_path, monkeypatch):
+    """Each of the six other backbones (lists in ``model_args``, as YAML
+    gives them) through ``Predictor(device="cpu")``, the plain model with
+    length ratios on ragged clips padded to their bucket, against the JAX
+    ``Predictor`` on the same weights."""
+    cfg, pt, msgpack = _save_backbone(name, tmp_path, seed=20)
+    monkeypatch.setattr(
+        tpredict, "make_campplus_masked_embed_fn",
+        lambda *a: pytest.fail("the kernel path was built"))
+    pred = Predictor(cfg, model_path=pt, device="cpu")
+    assert type(pred.model).__name__ == name and pred._embed is None
+    jpred = JaxPredictor(cfg, model_path=msgpack, use_gpu=False)
+    rng = np.random.RandomState(8)
+    clips = [(rng.randn(n) * 0.05).astype(np.float32)
+             for n in (16000, 20000, 31000, 9000)]
+    got = pred.predict_batch(clips)
+    want = jpred.predict_batch(clips)
+    assert got.shape == want.shape == (4, 16)
+    assert cos_min(want, got) > 0.9999
+
+
+def test_ecapa_config_serves_over_http_and_the_command_lines(tmp_path,
+                                                             capsys):
+    """``serve.py``, ``infer_contrast.py`` and
+    ``infer_speaker_diarization.py`` need no code of their own for another
+    backbone: an ECAPA-TDNN config serves every one on the CPU."""
+    import threading
+    import urllib.request
+
+    cfg, pt, _ = _save_backbone("EcapaTdnn", tmp_path, seed=21)
+    db = str(tmp_path / "db")
+    shutil.copytree(os.path.join(ROOT, "audio_db"), db,
+                    ignore=shutil.ignore_patterns("audio_indexes.bin"))
+    pred = Predictor(cfg, model_path=pt, audio_db_path=db, threshold=0.0,
+                     device="cpu")
+    httpd = serve.ServingHTTPServer(("127.0.0.1", 0), serve.make_handler(pred))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return yaml.safe_load(r.read())
+
+    try:
+        with open(WAVS[0], "rb") as f:
+            body = f.read()
+        emb = np.asarray(post("/embedding", body)["embedding"], np.float32)
+        assert emb.shape == (16,)
+        assert cos_min(pred.predict(WAVS[0])[None], emb[None]) > 0.9999
+        assert post("/recognition", body)["name"] in ("user_a", "user_b")
+        segs = post("/diarization?speakers=2", open(
+            os.path.join(ROOT, "dataset", "test_long.wav"), "rb").read())
+        assert segs["segments"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    path = tmp_path / "ecapa.yml"
+    path.write_text(yaml.safe_dump(cfg), encoding="utf-8")
+    score = infer_contrast.main([f"--configs={path}", "--device=cpu",
+                                 f"--model_path={pt}",
+                                 f"--audio_path1={WAVS[0]}",
+                                 f"--audio_path2={WAVS[0]}"])
+    assert score > 0.999
+    out = infer_speaker_diarization.main([
+        f"--configs={path}", "--device=cpu", f"--model_path={pt}",
+        f"--audio_path={os.path.join(ROOT, 'dataset', 'test_long.wav')}",
+        f"--audio_db_path={db}", "--search_audio_db=True", "--threshold=0",
+        "--speaker_num=2"])
+    assert out and all(isinstance(s["speaker"], str) for s in out)
+    assert "diarization results:" in capsys.readouterr().out

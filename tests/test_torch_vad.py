@@ -8,6 +8,7 @@ import os
 import numpy as np
 import pytest
 
+import torch_jax_native  # noqa: F401 (JAX's native library, locked)
 from test_vad_noisy import SR, _babble, _voice
 from voiceprintrecognition_paddlepaddle_torch.ops.audio import AudioSegment
 from voiceprintrecognition_paddlepaddle_tpu.ops.audio import \

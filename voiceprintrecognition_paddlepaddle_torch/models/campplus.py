@@ -45,13 +45,13 @@ class TDNNLayer(nn.Module):
     """conv1d then BN-ReLU (reference ``campplus.py:38-64``) on ``(B, C, T)``."""
 
     def __init__(self, in_channels, features, kernel_size, stride=1,
-                 dilation=1):
+                 dilation=1, config_str="batchnorm-relu"):
         super().__init__()
         pad = (kernel_size - 1) // 2 * dilation
         self.Conv_0 = nn.Conv1d(in_channels, features, kernel_size,
                                 stride=stride, padding=pad,
                                 dilation=dilation)
-        self._NonLinear_0 = NonLinear(features)
+        self._NonLinear_0 = NonLinear(features, config_str)
 
     def forward(self, x):
         return self._NonLinear_0(self.Conv_0(x))
@@ -94,11 +94,11 @@ class CAMDenseTDNNLayer(nn.Module):
     (reference ``campplus.py:109-142``)."""
 
     def __init__(self, in_channels, out_channels, bn_channels, kernel_size,
-                 dilation=1):
+                 dilation=1, config_str="batchnorm-relu"):
         super().__init__()
-        self._NonLinear_0 = NonLinear(in_channels)
+        self._NonLinear_0 = NonLinear(in_channels, config_str)
         self.Conv_0 = nn.Conv1d(in_channels, bn_channels, 1)
-        self._NonLinear_1 = NonLinear(bn_channels)
+        self._NonLinear_1 = NonLinear(bn_channels, config_str)
         self.CAMLayer_0 = CAMLayer(bn_channels, out_channels, kernel_size,
                                    dilation)
 
@@ -111,13 +111,13 @@ class CAMDenseTDNNBlock(nn.Module):
     """Densely connected CAM layers (reference ``campplus.py:145-173``)."""
 
     def __init__(self, num_layers, in_channels, out_channels, bn_channels,
-                 kernel_size, dilation=1):
+                 kernel_size, dilation=1, config_str="batchnorm-relu"):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             setattr(self, f"CAMDenseTDNNLayer_{i}", CAMDenseTDNNLayer(
                 in_channels + i * out_channels, out_channels, bn_channels,
-                kernel_size, dilation))
+                kernel_size, dilation, config_str))
 
     def forward(self, x):
         for i in range(self.num_layers):
@@ -182,28 +182,27 @@ class CAMPPlus(nn.Module):
                  init_channels=128, config_str="batchnorm-relu",
                  memory_efficient=True):
         super().__init__()
-        if config_str != "batchnorm-relu":
-            raise NotImplementedError(
-                f"config_str {config_str!r} is not ported yet; see "
-                "ROADMAP.md queue 1")
         self.input_size = input_size
+        self.config_str = config_str
         self.embd_dim = embd_dim
         self.growth_rate = growth_rate
         self.bn_size = bn_size
         self.init_channels = init_channels
         self.FCM_0 = FCM()
         fcm_dim = 32 * (-(-input_size // 8))
-        self.TDNNLayer_0 = TDNNLayer(fcm_dim, init_channels, 5, stride=2)
+        self.TDNNLayer_0 = TDNNLayer(fcm_dim, init_channels, 5, stride=2,
+                                     config_str=config_str)
         channels = init_channels
         for b, (n, dil) in enumerate(zip((12, 24, 16), (1, 2, 2))):
             setattr(self, f"CAMDenseTDNNBlock_{b}", CAMDenseTDNNBlock(
-                n, channels, growth_rate, bn_size * growth_rate, 3, dil))
+                n, channels, growth_rate, bn_size * growth_rate, 3, dil,
+                config_str))
             channels += n * growth_rate
-            setattr(self, f"_NonLinear_{b}", NonLinear(channels))
+            setattr(self, f"_NonLinear_{b}", NonLinear(channels, config_str))
             setattr(self, f"Conv_{b}", nn.Conv1d(channels, channels // 2, 1))
             channels //= 2
-        self._NonLinear_3 = NonLinear(channels)
-        self.DenseBN_0 = DenseBN(2 * channels, embd_dim)
+        self._NonLinear_3 = NonLinear(channels, config_str)
+        self.DenseBN_0 = DenseBN(2 * channels, embd_dim, "batchnorm_")
 
     def trunk(self, fcm_out):
         """FCM output ``(B, T_raw, F'*C)`` -> final trunk activations

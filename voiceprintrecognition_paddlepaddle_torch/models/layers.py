@@ -1,16 +1,20 @@
-"""Shared model building blocks (counterpart of the JAX ``models/layers.py``
-for the modules CAM++ needs).
+"""Shared model building blocks (counterpart of the JAX ``models/layers.py``).
 
-Attribute names follow the flax parameter tree (``Dense_0``,
-``BatchNorm_0``, ...) so that ``convert.jax_to_torch_state`` is a plain
-tree walk. BatchNorm uses the reference's eps 1e-5 (momentum only matters
-for training, which this slice does not port).
+Layouts: 1-D (temporal) modules run torch's ``(B, C, T)``; 2-D modules
+run NCHW ``(B, C, F, T)``. Attribute names follow the flax parameter tree
+(``Conv_0``, ``BatchNorm_0``, ``SamePadConv1d_0``, ...) so that
+``convert.jax_to_torch_state`` is a plain tree walk. BatchNorm uses the
+reference's eps 1e-5 (momentum only matters for training, which the port
+does not run yet).
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["batch_norm", "bn_affine", "DenseBN", "NonLinear"]
+__all__ = ["BN_EPS", "batch_norm", "bn_affine", "length_to_mask",
+           "hardtanh_relu20", "SamePadConv1d", "BatchNorm1d", "BN2d",
+           "TDNNBlock", "NonLinear", "DenseBN", "avg_pool_exclusive"]
 
 BN_EPS = 1e-5
 
@@ -27,30 +31,143 @@ def bn_affine(bn):
     return a, bn.bias.float() - bn.running_mean.float() * a
 
 
-class NonLinear(nn.Module):
-    """The ``batchnorm-relu`` stack (reference ``campplus.py:8-21``) on
+def length_to_mask(lengths, max_len):
+    """``(B,)`` lengths (frames, may be fractional) -> ``(B, max_len)``
+    boolean mask, frame ``t`` valid when ``t < lengths``."""
+    idx = torch.arange(max_len, device=lengths.device)[None, :]
+    return idx < lengths[:, None]
+
+
+def hardtanh_relu20(x):
+    """ERes2Net's ReLU: Hardtanh(0, 20)."""
+    return torch.clamp(x, 0.0, 20.0)
+
+
+class SamePadConv1d(nn.Module):
+    """Stride-1 conv over time on ``(B, C, T)`` with the reference's 'same'
+    padding in reflect mode, then a VALID conv (JAX ``layers.py:36-62``).
+
+    ``jnp.pad(mode="reflect")`` repeats the reflection when the pad is not
+    shorter than the input; ``F.pad`` refuses such a pad, and so does this
+    module (``ValueError``) rather than compute something else."""
+
+    def __init__(self, in_channels, features, kernel_size, dilation=1):
+        super().__init__()
+        self.Conv_0 = nn.Conv1d(in_channels, features, kernel_size,
+                                dilation=dilation)
+
+    def forward(self, x):
+        (k,), (d,) = self.Conv_0.kernel_size, self.Conv_0.dilation
+        pad = d * (k - 1) // 2
+        if pad:
+            if pad >= x.shape[-1]:
+                raise ValueError(
+                    f"reflect padding of {pad} frames needs more than {pad} "
+                    f"frames of input, got {x.shape[-1]}")
+            x = F.pad(x, (pad, pad), mode="reflect")
+        return self.Conv_0(x)
+
+
+class BatchNorm1d(nn.Module):
+    """BatchNorm over the channel axis of ``(B, C)`` or ``(B, C, T)``
+    (JAX ``layers.py:65-72``, a wrapper in the flax tree)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.BatchNorm_0 = batch_norm(channels)
+
+    def forward(self, x):
+        return self.BatchNorm_0(x)
+
+
+class BN2d(nn.Module):
+    """BatchNorm over the channel axis of NCHW (the JAX 2-D backbones'
+    ``_BN2d`` wrapper)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=BN_EPS)
+
+    def forward(self, x):
+        return self.BatchNorm_0(x)
+
+
+class TDNNBlock(nn.Module):
+    """conv -> ReLU -> BN (JAX ``layers.py:75-88``), on ``(B, C, T)``."""
+
+    def __init__(self, in_channels, features, kernel_size, dilation=1):
+        super().__init__()
+        self.SamePadConv1d_0 = SamePadConv1d(in_channels, features,
+                                             kernel_size, dilation=dilation)
+        self.BatchNorm1d_0 = BatchNorm1d(features)
+
+    def forward(self, x):
+        return self.BatchNorm1d_0(torch.relu(self.SamePadConv1d_0(x)))
+
+
+class _Stack(nn.Module):
+    """The ``get_nonlinear`` stack of a ``config_str`` such as
+    ``"batchnorm-relu"`` or ``"prelu-batchnorm"``: its BatchNorms are
+    ``BatchNorm_0``, ``BatchNorm_1``, ... and a PReLU's slope is the
+    parameter ``prelu_alpha``, as in the flax tree. Applied over the
+    channel axis 1."""
+
+    def _build_stack(self, channels, config_str):
+        self.config_str = config_str
+        self._ops = []
+        for name in config_str.split("-"):
+            if name == "relu":
+                self._ops.append("relu")
+            elif name in ("batchnorm", "batchnorm_"):
+                n = sum(o.startswith("BatchNorm") for o in self._ops)
+                bn = f"BatchNorm_{n}"
+                setattr(self, bn, batch_norm(channels))
+                self._ops.append(bn)
+            elif name == "prelu":
+                self.prelu_alpha = nn.Parameter(torch.full((channels,), 0.25))
+                self._ops.append("prelu")
+            else:
+                raise ValueError(f"Unexpected module ({name}).")
+
+    def _run_stack(self, x):
+        for op in self._ops:
+            if op == "relu":
+                x = torch.relu(x)
+            elif op == "prelu":
+                a = self.prelu_alpha.view(-1, *([1] * (x.ndim - 2)))
+                x = torch.where(x >= 0, x, a * x)
+            else:
+                x = getattr(self, op)(x)
+        return x
+
+
+class NonLinear(_Stack):
+    """The BN / ReLU / PReLU stack of CAM++ (JAX ``campplus.py:52-71``) on
     ``(B, C, T)``."""
 
     def __init__(self, channels, config_str="batchnorm-relu"):
         super().__init__()
-        if config_str != "batchnorm-relu":
-            raise NotImplementedError(
-                f"config_str {config_str!r} is not ported yet; see "
-                "ROADMAP.md queue 1")
-        self.BatchNorm_0 = batch_norm(channels)
+        self._build_stack(channels, config_str)
 
     def forward(self, x):
-        return torch.relu(self.BatchNorm_0(x))
+        return self._run_stack(x)
 
 
-class DenseBN(nn.Module):
-    """Linear then BatchNorm (``config_str="batchnorm_"``, the CAM++ embedding
-    head) on ``(B, C)``."""
+class DenseBN(_Stack):
+    """Linear, then the ``config_str`` stack (JAX ``layers.py:91-115``), on
+    ``(B, C)``: the classifier's dense blocks and the CAM++ embedding head
+    (``config_str="batchnorm_"``)."""
 
-    def __init__(self, in_features, features):
+    def __init__(self, in_features, features, config_str="batchnorm-relu"):
         super().__init__()
         self.Dense_0 = nn.Linear(in_features, features)
-        self.BatchNorm_0 = batch_norm(features)
+        self._build_stack(features, config_str)
 
     def forward(self, x):
-        return self.BatchNorm_0(self.Dense_0(x))
+        return self._run_stack(self.Dense_0(x))
+
+
+def avg_pool_exclusive(x, window, stride, padding):
+    """2-D average pool of NCHW input whose divisor excludes the padding,
+    paddle's ``AvgPool2D(exclusive=True)`` (JAX ``layers.py:118-134``)."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=False)

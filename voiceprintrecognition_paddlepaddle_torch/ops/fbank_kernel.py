@@ -70,9 +70,9 @@ FbankTables = namedtuple(
 @lru_cache(maxsize=None)
 def _tables_np(sr, n_mels):
     if sr != 16000:
-        raise NotImplementedError(
-            f"fbank at sr={sr} is not ported yet (16 kHz only); see "
-            "ROADMAP.md queue 1")
+        raise ValueError(
+            f"the fbank kernel frames 16 kHz audio only, got sr={sr}; "
+            "features.fbank_dispatch sends other rates to kaldi.fbank")
     bfold = folded_dft_np(_FRAME_LEN, _N_FFT).astype(np.float32)
     mel = kaldi._kaldi_mel_banks_np(n_mels, _N_FFT, sr)
     keep = _N_FFT // 2

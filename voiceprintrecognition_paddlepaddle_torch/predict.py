@@ -2,6 +2,9 @@
 persistent audio database, and speaker diarization (counterpart of the
 JAX ``predict.py``).
 
+Every config in ``configs/`` is served: CAM++, ECAPA-TDNN, TDNN,
+Res2Net, ResNetSE, ERes2Net and ERes2NetV2, on any feature method.
+
 The kernel path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
 fbank kernel, CMN, the FCM (the FCM kernel from 1000 frames, the 16 s
 bucket and up; plain convs below), the whole-trunk kernel and the DenseBN
@@ -14,15 +17,21 @@ Which path a batch takes is decided as in the JAX ``Predictor``:
 
 - by the configuration, once, in ``__init__`` (JAX
   ``_maybe_make_fast_embed``, ``predict.py:116-133``): the kernel path
-  serves exactly the stock CAM++ (growth 32, init_channels 128, bn_size 4)
-  on the 80-mel Fbank front end; any other configuration runs the plain
-  model for every batch;
+  serves exactly the stock CAM++ (growth 32, init_channels 128, bn_size 4,
+  the ``batchnorm-relu`` stack the trunk kernel folds) on the 80-mel
+  Fbank front end without dither; any other configuration, every other
+  backbone included, runs the plain model for every batch;
 - by the bucket length (``predict.py:382-407``): buckets longer than
   ``MAX_KERNEL_BUCKET_SAMPLES`` (32 s) run the plain model.
 
-The plain model is ``CAMPPlus.forward(feats, lengths=ratios)`` on the same
-device, the JAX ``_jit_embed``; featurizing still goes through the fbank
-kernel, which does not depend on the model.
+The plain path is the features, then ``model.forward(feats,
+lengths=ratios)`` on the same device, the JAX ``_embed_impl``. Its
+featurizing goes through the fbank kernel whenever the Fbank options are
+the stock ones (``features.fbank_dispatch``); the backbones run as cuDNN
+and cuBLAS calls in fp32 under PyTorch's default precision (convs may use
+TF32, matmuls do not). With Fbank dither on, the plain path draws its
+noise from a generator seeded 0 for every batch, as JAX ``_embed_impl``
+uses a fixed key, so inference stays deterministic.
 
 The audio database keeps the JAX package's pickle ``audio_indexes.bin``
 format (users_name / faces_feature / users_image_path).
@@ -112,13 +121,14 @@ class Predictor:
         self.speaker_diarize = SpeakerDiarization()
 
     def _kernel_path_applies(self):
-        """The stock CAM++ on the 80-mel Fbank front end (JAX
-        ``_maybe_make_fast_embed``, ``predict.py:123-133``)."""
-        m = self.model
+        """The stock CAM++ on the 80-mel Fbank front end without dither
+        (JAX ``_maybe_make_fast_embed``, ``predict.py:123-133``)."""
+        m, feat = self.model, self._audio_featurizer
         return (isinstance(m, CAMPPlus) and m.growth_rate == 32
                 and m.init_channels == 128 and m.bn_size == 4
-                and self._audio_featurizer.feature_method == "Fbank"
-                and self._audio_featurizer.feature_dim == 80)
+                and m.config_str == "batchnorm-relu"
+                and feat.feature_method == "Fbank"
+                and feat.feature_dim == 80 and feat.dither == 0.0)
 
     # ------------------------------------------------------------------
     # audio db persistence (pickle format of reference predict.py:89-109)
@@ -305,8 +315,14 @@ class Predictor:
     @torch.no_grad()
     def _embed_plain(self, waves, ratios):
         """The plain model on a padded batch (JAX ``_embed_impl``): masked
-        CMN, then ``CAMPPlus.forward`` with length-aware pooling."""
-        feats = self._audio_featurizer(waves, input_lens_ratio=ratios)
+        CMN, then ``model.forward`` with length-aware pooling. Dither, when
+        on, comes from a generator seeded 0 (JAX's fixed key)."""
+        rng = None
+        if self._audio_featurizer.dither > 0:
+            rng = torch.Generator(device=waves.device)
+            rng.manual_seed(0)
+        feats = self._audio_featurizer(waves, input_lens_ratio=ratios,
+                                       rng=rng)
         lengths = torch.from_numpy(ratios).to(self.device)
         return self.model(feats, lengths=lengths).float()
 
