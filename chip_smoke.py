@@ -96,8 +96,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
-# configs/cam++.yml: dataset_conf, preprocess_conf and model_conf (kept as
-# a dict: the GPU host has no PyYAML)
+# configs/cam++.yml, whole (kept as a dict: the GPU host has no PyYAML)
 CONFIG = {
     "dataset_conf": {
         "dataset": {"min_duration": 0.3, "max_duration": 3,
@@ -117,6 +116,19 @@ CONFIG = {
     "model_conf": {"model": "CAMPPlus", "model_args": {"embd_dim": 192},
                    "classifier": {"classifier_type": "Cosine",
                                   "num_speakers": 2796, "num_blocks": 0}},
+    "loss_conf": {"loss": "AAMLoss",
+                  "loss_args": {"margin": 0.2, "scale": 32,
+                                "easy_margin": False, "label_smoothing": 0.0},
+                  "use_margin_scheduler": True,
+                  "margin_scheduler_args": {"initial_margin": 0.0,
+                                            "final_margin": 0.3}},
+    "optimizer_conf": {"optimizer": "Adam",
+                       "optimizer_args": {"weight_decay": 1.0e-06},
+                       "scheduler": "WarmupCosineSchedulerLR",
+                       "scheduler_args": {"learning_rate": 0.001,
+                                          "min_lr": 1.0e-05,
+                                          "warmup_epoch": 5}},
+    "train_conf": {"enable_amp": False, "max_epoch": 60, "log_interval": 10},
 }
 
 # model_conf of the six other configs/*.yml (kept as dicts, as CONFIG)
@@ -1110,6 +1122,489 @@ def backbones_phase(dev, card):
     return out
 
 
+# ---- 10. training ----------------------------------------------------------
+def write_wav(path, samples, sr=16000):
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+
+
+def synth_corpus(root, n_train=64, clips=8, train_s=(3.0, 5.0), n_eval=8,
+                 enroll=2, trials=3, eval_s=(3.0, 20.0), seed=SEED):
+    """Seeded WAVs under ``root``: speaker k a harmonic stack on its own
+    f0 with noise (``tests/test_trainer_e2e.py``), ``n_train`` train
+    speakers of ``clips`` clips and ``n_eval`` other speakers with
+    ``enroll`` enroll and ``trials`` trial clips. Returns the train, enroll
+    and trials list paths."""
+    rng = np.random.RandomState(seed)
+    wavs = os.path.join(root, "wavs")
+    os.makedirs(wavs, exist_ok=True)
+
+    def clip(f0, seconds, name):
+        t = np.arange(int(seconds * 16000)) / 16000
+        sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.rand()) / h
+                  for h in range(1, 5))
+        path = os.path.join(wavs, name)
+        write_wav(path, rng.uniform(0.1, 0.4) * (sig + 0.1 * rng.randn(len(t))))
+        return path
+
+    lists = {"train": [], "enroll": [], "trials": []}
+    for k in range(n_train):
+        f0 = 90.0 + 5.0 * k
+        lists["train"] += [f"{clip(f0, rng.uniform(*train_s), f't{k}_{i}.wav')}"
+                           f"\t{k}" for i in range(clips)]
+    for k in range(n_eval):
+        f0 = 92.5 + 37.0 * k
+        for part, n in (("enroll", enroll), ("trials", trials)):
+            lists[part] += [f"{clip(f0, rng.uniform(*eval_s), f'{part}{k}_{i}.wav')}"
+                            f"\t{k}" for i in range(n)]
+    out = []
+    for part in ("train", "enroll", "trials"):
+        path = os.path.join(root, f"{part}_list.txt")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lists[part]) + "\n")
+        out.append(path)
+    return out
+
+
+def train_config(lists, **changes):
+    """``CONFIG`` with the list paths set (and ``changes``, dotted keys);
+    returns the config and every change made."""
+    import copy
+
+    cfg = copy.deepcopy(CONFIG)
+    done = dict(zip(("dataset_conf.train_list", "dataset_conf.enroll_list",
+                     "dataset_conf.trials_list"), lists), **changes)
+    for key, value in done.items():
+        node = cfg
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node[k]
+        node[leaf] = value
+    return cfg, done
+
+
+def _one_step(tr, variables, classifier, batch, step):
+    """``tr``'s train step from the given weights on ``batch`` at the
+    trainer's step ``step``: the loss, the gradients (caught before the
+    update), the parameters after it and the BN statistics, on the CPU
+    in float64."""
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+
+    tr.model.load_state_dict(jax_to_torch_state(variables))
+    tr.classifier.load_state_dict(classifier)
+    tr.step = step
+    grads = {}
+
+    def catch(opt, args, kwargs):
+        for n, p in zip(tr.param_names, opt.param_groups[0]["params"]):
+            grads[n] = p.grad.detach().double().cpu()
+
+    hook = tr.optimizer.register_step_pre_hook(catch)
+    kind, data, labels, lens = batch
+    tr.model.train()
+    tr.classifier.train()
+    loss, _ = tr.train_step(kind, *(torch.from_numpy(x).to(tr.device)
+                                    for x in (data, labels, lens)))
+    hook.remove()
+    return {"loss": float(loss), "grads": grads,
+            "params": {n: p.detach().double().cpu() for n, p in
+                       zip(tr.param_names,
+                           tr.optimizer.param_groups[0]["params"])},
+            "stats": {k: v.double().cpu() for k, v in
+                      tr.model.state_dict().items() if "running" in k}}
+
+
+def _step_diff(c, g):
+    """The card's step ``g`` against the CPU's ``c``."""
+    top = max(float(v.norm()) for v in c["grads"].values())
+    cos, small = {}, {}
+    for n, v in c["grads"].items():
+        w = g["grads"][n]
+        if float(v.norm()) >= 1e-5 * top:
+            cos[n] = float((v * w).sum() / (v.norm() * w.norm()))
+        else:   # zero up to rounding: a bias ahead of a BatchNorm
+            small[n] = float((v - w).norm()) / top
+    flat_c = torch.cat([v.flatten() for v in c["grads"].values()])
+    flat_g = torch.cat([g["grads"][n].flatten() for n in c["grads"]])
+    stats = max(float((g["stats"][k] - v).abs().max() / v.abs().max())
+                for k, v in c["stats"].items())
+    # Adam's first step moves an entry by lr * g / (|g| + 1e-8), about
+    # lr * sign(g): compare the entries whose gradient sets that sign on
+    # both sides (above 1e-3 of the leaf's largest and 1e-6 on both), in
+    # the leaves whose gradient is not rounding alone
+    held, flips, total, par, worst = 0, 0, 0, 0.0, None
+    for n, v in c["params"].items():
+        total += v.numel()
+        if n not in cos:
+            continue
+        gc, gg = c["grads"][n], g["grads"][n]
+        det = (gc.abs() > 1e-3 * gc.abs().max()) & (gc.abs() > 1e-6)
+        same = det & (torch.sign(gc) == torch.sign(gg)) & (gg.abs() > 1e-6)
+        d = torch.where(same, (g["params"][n] - v).abs(), 0.0)
+        rel = float(d.max()) / float(v.abs().max())
+        if rel > par:
+            i = int(d.flatten().argmax())
+            par, worst = rel, (n, float(gc.flatten()[i]),
+                               float(gg.flatten()[i]), float(v.flatten()[i]),
+                               float(g["params"][n].flatten()[i]))
+        held += int(same.sum())
+        flips += int((det & ~same).sum())
+    return {"loss_card": g["loss"],
+            "loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+            "grad_cos_all": float((flat_c * flat_g).sum()
+                                  / (flat_c.norm() * flat_g.norm())),
+            "grad_cos_min": min(cos.values()),
+            "grad_cos_worst": sorted(
+                (round(v, 6), n, float(c["grads"][n].norm()) / top)
+                for n, v in cos.items())[:4],
+            "grad_leaves": len(cos), "rounding_leaves": len(small),
+            "rounding_leaf_max_d": max(small.values(), default=0.0),
+            "bn_stats_rel": stats, "param_rel": par,
+            "param_worst": worst,
+            "param_entries_held": held, "param_sign_flips": flips,
+            "param_entries": total}
+
+
+def held_step(cfg, dev, seed=SEED, step=None):
+    """One train step of ``cfg`` on ``dev`` against the same step on the
+    CPU: the same weights (seeded through models/convert.py), the same
+    first batch of the train list, no augmentation (the dB normalization
+    runs). The card runs it twice: with cuDNN's TF32 convs (PyTorch's
+    default, what training uses) and in fp32. ``step``: the trainer's
+    step count before it (the schedule's update), by default the end of
+    the warmup, where the LR is at its peak. Returns the measured
+    differences of each."""
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    cpu = Trainer(cfg, device="cpu")
+    cpu._setup_dataloader(is_train=True)
+    cpu._setup_model(cpu.audio_featurizer.feature_dim, is_train=True)
+    variables = random_flax_variables(cpu.model, seed)
+    classifier = {k: v.clone() for k, v in cpu.classifier.state_dict().items()}
+    if step is None:
+        warm = cfg["optimizer_conf"]["scheduler_args"].get("warmup_epoch", 5)
+        step = int(warm * len(cpu.train_loader))
+    cpu.train_dataset._rng.seed(seed)        # the crops of the batch
+    batch = next(iter(cpu.train_loader))
+    ref = _one_step(cpu, variables, classifier, batch, step)
+    out = {"loss_cpu": ref["loss"], "step": step, "lr": cpu.lr_schedule(step)}
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        for name, allow in (("tf32", True), ("fp32", False)):
+            torch.backends.cudnn.allow_tf32 = allow
+            card = Trainer(cfg, device=dev)
+            card._setup_dataloader(is_train=True)
+            card._setup_model(card.audio_featurizer.feature_dim, is_train=True)
+            out[name] = _step_diff(
+                ref, _one_step(card, variables, classifier, batch, step))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def held_step_ok(held, per_leaf=True):
+    """The gates, from what the card measured (two batches each). fp32
+    convs: the loss and the BN statistics within 1e-3 relative, the whole
+    gradient cos >= 0.999 (measured 0.99970, 0.99972), every leaf
+    cos >= 0.995 (measured down to 0.99869, 0.99930: small CAM-gate
+    leaves, 1e-4 of the largest leaf's norm, from summation order alone),
+    the leaves that are zero up to rounding within 1e-3 of the largest
+    leaf's norm, the updated parameters within 1e-3 of each leaf's scale
+    where both gradients set the same Adam sign (measured 6.0e-5, on 89.8 %
+    of the entries; the gate asks 75 % or more). TF32 convs (PyTorch's default, what training uses; measured
+    loss 5.9e-4 and 1.6e-3 relative off the CPU's fp32, whole-gradient cos
+    0.966 and 0.969, leaves down to 0.785): the loss within 1e-2, the
+    whole gradient cos >= 0.9, the BN statistics within 1e-3.
+    ``per_leaf=False`` drops the leaf bar (the tiny model of
+    ``tests/test_torch_gpu.py``, whose 1e-5 cutoff does not separate its
+    zero-up-to-rounding leaves)."""
+    f, t = held["fp32"], held["tf32"]
+    return (f["loss_rel"] <= 1e-3 and f["grad_cos_all"] >= 0.999
+            and (f["grad_cos_min"] >= 0.995 or not per_leaf)
+            and f["rounding_leaf_max_d"] <= 1e-3 and f["bn_stats_rel"] <= 1e-3
+            and f["param_rel"] <= 1e-3
+            and f["param_entries_held"] >= 0.75 * f["param_entries"]
+            and t["loss_rel"] <= 1e-2 and t["grad_cos_all"] >= 0.9
+            and t["bn_stats_rel"] <= 1e-3)
+
+
+def instrument(tr, fk):
+    """Wrap ``tr.train_step`` and ``tr.featurize`` with CUDA events, and
+    count the fbank kernel's launches and keep the loss of each step."""
+    rec = {"step": [], "featurize": [], "fbank": [], "loss": []}
+    step, featurize = tr.train_step, tr.featurize
+
+    def events():
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        return s, e
+
+    def timed_featurize(*a, **kw):
+        s, e = events()
+        out = featurize(*a, **kw)
+        e.record()
+        rec["featurize"].append((s, e))
+        return out
+
+    def timed_step(*a, **kw):
+        n = fk.fbank_fused.launches
+        s, e = events()
+        loss, acc = step(*a, **kw)
+        e.record()
+        rec["step"].append((s, e))
+        rec["fbank"].append(fk.fbank_fused.launches - n)
+        rec["loss"].append(loss)
+        return loss, acc
+
+    tr.train_step, tr.featurize = timed_step, timed_featurize
+    return rec
+
+
+def step_split(tr, batch, steps=4):
+    """Where a train step's time goes: CUDA events around the whole step,
+    the featurize, the backbone's forward (module hooks) and the optimizer
+    update (optimizer hooks), means over ``steps`` steps after two; the
+    rest is the head, the loss and the backward. Then one step traced by
+    ``torch.profiler`` (``kernel_split``): its device time, the share in
+    conv and matmul kernels, the top kernels."""
+    rec = {k: [] for k in ("step", "featurize", "forward", "optimizer")}
+    open_ = {}
+
+    def start(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        open_[key] = e
+
+    def stop(key):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        rec[key].append((open_.pop(key), e))
+
+    featurize = tr.featurize
+
+    def timed_featurize(*a, **kw):
+        start("featurize")
+        out = featurize(*a, **kw)
+        stop("featurize")
+        return out
+
+    hooks = [tr.model.register_forward_pre_hook(lambda *_: start("forward")),
+             tr.model.register_forward_hook(lambda *_: stop("forward")),
+             tr.optimizer.register_step_pre_hook(lambda *_: start("optimizer")),
+             tr.optimizer.register_step_post_hook(lambda *_: stop("optimizer"))]
+    tr.featurize = timed_featurize
+    args = [torch.from_numpy(x).to(tr.device) for x in batch[1:]]
+    try:
+        for i in range(steps + 2):
+            start("step")
+            tr.train_step(batch[0], *args)
+            stop("step")
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+        tr.featurize = featurize
+    out = {k: sum(s_.elapsed_time(e) for s_, e in v[2:]) / steps
+           for k, v in rec.items()}
+    out["rest_ms"] = out["step"] - out["featurize"] - out["forward"] \
+        - out["optimizer"]
+    out = {f"{k}_ms" if not k.endswith("_ms") else k: v
+           for k, v in out.items()}
+    out.update(kernel_split(lambda: tr.train_step(batch[0], *args), n_top=6))
+    out["busy"] = out["traced_ms"] / out["step_ms"]
+    return out
+
+
+def train_phase(dev, card):
+    """Phase 10: training on the card. A seeded corpus; one train step
+    held against the CPU; Trainer.train() for one epoch at b64 x 3 s in
+    fp32 and with enable_amp; evaluate() through the three kernels;
+    best_model served by Predictor; resume."""
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+    from voiceprintrecognition_paddlepaddle_torch.ops import features, kaldi
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    work = tempfile.mkdtemp(prefix="vpr_train_")
+    try:
+        lists = synth_corpus(work)
+        cfg, changes = train_config(lists)
+        log(f"[train] corpus: 64 train speakers x 8 clips of 3-5 s, 8 eval "
+            f"speakers x (2 enroll + 3 trials) clips of 3-20 s, in "
+            f"{time.perf_counter() - t0:.1f} s; config configs/cam++.yml "
+            f"with {changes}; precision: cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+
+        # -- one step on the card against the CPU, b8 x 3 s ---------------
+        cfg8, ch8 = train_config(lists, **{"dataset_conf.sampler.batch_size": 8})
+        t = time.perf_counter()
+        held = held_step(cfg8, dev)
+        held["wall_s"] = time.perf_counter() - t
+        out["held_vs_cpu"] = held
+        for name in ("tf32", "fp32"):
+            h = held[name]
+            log(f"[train] {card}: one step b8 x 3 s at update {held['step']} "
+                f"(lr {held['lr']:.2e}), the card ({name} convs) against the "
+                f"CPU: loss {h['loss_card']:.6f} vs {held['loss_cpu']:.6f} "
+                f"(rel {h['loss_rel']:.2e}); gradient cos over all leaves "
+                f"{h['grad_cos_all']:.6f}, leaf min {h['grad_cos_min']:.6f} "
+                f"over {h['grad_leaves']} leaves, worst "
+                f"{h['grad_cos_worst']} (cos, leaf, norm / largest); "
+                f"{h['rounding_leaves']} leaves below 1e-5 of the largest "
+                f"leaf's norm (zero up to rounding) within "
+                f"{h['rounding_leaf_max_d']:.2e} of it; BN running statistics "
+                f"rel {h['bn_stats_rel']:.2e}; updated parameters rel "
+                f"{h['param_rel']:.2e} on {h['param_entries_held']} of "
+                f"{h['param_entries']} entries (gradient above 1e-3 of the "
+                f"leaf's largest and 1e-6, the same sign on both, leaves "
+                f"above rounding; {h['param_sign_flips']} such entries flip "
+                f"sign); worst (leaf, CPU gradient, card gradient, CPU "
+                f"parameter, card parameter) {h['param_worst']}")
+        log(f"[train] gates (held_step_ok): fp32: loss, BN 1e-3, all-leaf "
+            f"cos >= 0.999, each leaf >= 0.995, rounding leaves 1e-3, "
+            f"parameters 1e-3; tf32: loss 1e-2, all-leaf cos >= 0.9, BN 1e-3; "
+            f"{held['wall_s']:.1f} s")
+        if not held_step_ok(held):
+            raise AssertionError("the train step on the card disagrees with "
+                                 "the CPU")
+
+        # -- full width: one epoch at b64 x 3 s, fp32 then AMP --------------
+        save = os.path.join(work, "models")
+        trainers = {}
+        for amp in (False, True):
+            cfg_r, _ = train_config(lists, **{"train_conf.enable_amp": amp})
+            tr = Trainer(cfg_r, device=dev)
+            rec = instrument(tr, fk)
+            reset_launches(fk, fkm, tk)
+            t = time.perf_counter()
+            tr.train(save_model_path="" if amp else save, log_dir="",
+                     do_eval=not amp, max_epochs=1)
+            wall = time.perf_counter() - t
+            launches = read_launches(fk, fkm, tk)
+            steps = [s.elapsed_time(e) for s, e in rec["step"]]
+            feat = [s.elapsed_time(e) for s, e in rec["featurize"]]
+            losses = [float(x) for x in rec["loss"]]
+            steady = steps[2:]
+            step_ms = sum(steady) / len(steady)
+            run = {"steps": len(steps), "step_ms": steps,
+                   "steady_step_ms": step_ms,
+                   "train_utt_per_s": 64e3 / step_ms,
+                   "featurize_ms": sum(feat[2:]) / len(feat[2:]),
+                   "fbank_launches_per_step": rec["fbank"], "loss": losses,
+                   "wall_s": wall, "launches_train_path": launches}
+            run["featurize_share"] = run["featurize_ms"] / step_ms
+            out["amp" if amp else "fp32"] = run
+            log(f"[train] {card}: Trainer.train() 1 epoch, b64 x 3 s, "
+                f"{'AMP bf16' if amp else 'fp32'}: {len(steps)} steps, "
+                f"steady step {step_ms:.2f} ms (CUDA events, steps 3-"
+                f"{len(steps)}) = {run['train_utt_per_s']:.1f} train utt/s; "
+                f"featurize {run['featurize_ms']:.3f} ms "
+                f"({100 * run['featurize_share']:.1f} % of the step); fbank "
+                f"launches per step {rec['fbank']}; loss "
+                f"{[round(x, 4) for x in losses]}; train() wall {wall:.1f} s "
+                f"(with {'no' if amp else 'the per-epoch'} evaluation); "
+                f"launches {launches}")
+            if not (all(n == 1 for n in rec["fbank"]) and len(steps) >= 4
+                    and all(np.isfinite(losses))):
+                raise AssertionError("a train step did not launch the fbank "
+                                     "kernel once, or its loss is not finite")
+            trainers[amp] = tr
+
+        # -- evaluate(): the three kernels, no fallback ---------------------
+        tr = trainers[False]
+        reset_launches(fk, fkm, tk)
+        t = time.perf_counter()
+        eer, min_dcf, threshold = tr.evaluate()
+        launches = read_launches(fk, fkm, tk)
+        ev = {"eer": eer, "min_dcf": min_dcf, "threshold": threshold,
+              "wall_s": time.perf_counter() - t, "launches": launches,
+              "clips": len(tr.enroll_dataset) + len(tr.trials_dataset)}
+        enroll, _ = tr.eval_embeddings["enroll"]
+        cos = []
+        tr.model.eval()
+        with torch.no_grad():
+            for i in range(len(tr.enroll_dataset)):
+                x = torch.from_numpy(tr.enroll_dataset[i][0]).to(dev)[None]
+                f = features.apply_cmn_and_mask(kaldi.fbank(x, n_mels=80))
+                cos.append(cos_min(tr.model(f), enroll[i:i + 1]))
+        tr.model.train()
+        ev["cos_vs_plain_min"] = min(cos)
+        out["eval"] = ev
+        log(f"[train] {card}: evaluate() over {ev['clips']} clips of 3-20 s: "
+            f"EER {eer:.5f}, MinDCF {min_dcf:.5f}, threshold "
+            f"{threshold:.4f}, wall {ev['wall_s']:.2f} s, launches "
+            f"{launches}; enroll embeddings against the plain fp32 model at "
+            f"exact length: cos min {ev['cos_vs_plain_min']:.6f} (bar 0.999)")
+        if not (launches["campplus_trunk"] > 0 and launches["fcm"] > 0
+                and ev["cos_vs_plain_min"] > 0.999):
+            raise AssertionError("the evaluation did not run the kernels or "
+                                 "disagrees with the plain model")
+
+        # -- checkpoints: Predictor serves best_model; resume ---------------
+        best = os.path.join(save, "CAMPPlus_Fbank", "best_model")
+        pred = Predictor(cfg, model_path=best, device=dev)
+        paths = [ln.split("\t")[0] for ln in tr.enroll_dataset.lines]
+        got = torch.from_numpy(pred.predict_batch(
+            paths, batch_size=cfg["dataset_conf"]["eval_conf"]["batch_size"]))
+        c_pred = cos_min(got.to(dev), enroll)
+        tr2 = Trainer(cfg, device=dev)
+        tr2.train(save_model_path=save, log_dir="", do_eval=False,
+                  max_epochs=2)
+        with open(os.path.join(save, "CAMPPlus_Fbank", "last_model",
+                               "model.state"), encoding="utf-8") as f:
+            last = json.load(f)
+        lr = tr2.optimizer.param_groups[0]["lr"]
+        want_lr = tr2.lr_schedule(tr2.updates - 1)
+        out["checkpoints"] = {
+            "predictor_cos_min": c_pred, "resumed_step": tr2.step,
+            "steps_per_epoch": len(tr2.train_loader),
+            "last_epoch": last["last_epoch"], "lr": lr, "schedule_lr": want_lr,
+            "files": sorted(os.listdir(best))}
+        log(f"[train] Predictor(best_model, device='cuda') against the "
+            f"trainer's eval embeddings: cos min {c_pred:.6f} (bar 0.9999); "
+            f"resumed from last_model for epoch 2: step {tr2.step} "
+            f"({len(tr2.train_loader)} a epoch), last_epoch "
+            f"{last['last_epoch']}, lr {lr:.4e} = schedule({tr2.updates - 1}) "
+            f"{want_lr:.4e}; best_model holds {sorted(os.listdir(best))}")
+        if not (c_pred > 0.9999 and tr2.step == 2 * len(tr2.train_loader)
+                and last["last_epoch"] == 2 and lr == want_lr):
+            raise AssertionError("checkpoint serving or resume is wrong")
+
+        # -- where a step's time goes (after the checks above: these steps
+        # move the weights that best_model holds) --------------------------
+        for amp, tr in trainers.items():
+            run = out["amp" if amp else "fp32"]
+            run["split"] = step_split(tr, next(iter(tr.train_loader)))
+            sp = run["split"]
+            log(f"[train] {card}: one {'AMP' if amp else 'fp32'} step at b64 "
+                f"x 3 s (means of 4 after 2): {sp['step_ms']:.2f} ms = "
+                f"featurize {sp['featurize_ms']:.3f} + backbone forward "
+                f"{sp['forward_ms']:.2f} + optimizer {sp['optimizer_ms']:.2f} "
+                f"+ head, loss and backward {sp['rest_ms']:.2f}; traced device "
+                f"time {sp['traced_ms']:.2f} ms (busy {100 * sp['busy']:.0f} "
+                f"%), conv / matmul kernels {sp['products_share']} of it; top "
+                f"kernels {sp['top']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[train] phase 10 wall {out['wall_s']:.1f} s")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -1373,7 +1868,14 @@ def main():
     # ---- 9. backbones: the six other configs, the other front ends ------
     backbones = backbones_phase(dev, card)
     print(json.dumps({"backbones": backbones, "card": card}), flush=True)
+
+    # ---- 10. training: the train step, evaluate, checkpoints -------------
+    training = train_phase(dev, card)
+    print(json.dumps({"training": training}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    train_launches = {"fbank_per_step": 1,
+                      "eval": training["eval"]["launches"],
+                      "train_path": training["fp32"]["launches_train_path"]}
 
     f16, f3 = fcm_t["b32 x 16 s"], fcm_t["b256 x 3 s"]
     # bounds at the shapes of "ms": fbank b256 x 3 s (fp32: a 512-point
@@ -1385,6 +1887,9 @@ def main():
         "name": "fbank", "route": "cuda", "source": FBANK_SRC,
         "replaces": FBANK_TPU, "launches": launches["fbank"],
         "max_abs_err": fb_max, "max_abs_err_hard_vs_float64": fb_hard_max,
+        "launches_train_step": train_launches["fbank_per_step"],
+        "launches_train_path": train_launches["train_path"]["fbank"],
+        "launches_eval": train_launches["eval"]["fbank"],
         "ms": ms(fb3["ms"]), "plain_ms": ms(fb3["plain_ms"]), **fb_bound,
         "library_ms": None, "cufft_ms": ms(fb3["cufft_ms"]),
         "graph_ms": ms(fb3["graph_ms"]), "shape": "b256 x 3 s"}
@@ -1413,6 +1918,7 @@ def main():
         {"name": "fcm", "route": "cuda", "source": FCM_SRC,
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,
+         "launches_eval": train_launches["eval"]["fcm"],
          "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
          **fcm_bounds["b32 x 16 s"], "library_ms": None,
          "cudnn_ms": ms(f16["cudnn_ms"]),
@@ -1431,6 +1937,7 @@ def main():
         {"name": "campplus_trunk", "route": "cuda", "source": TRUNK_SRC,
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
+         "launches_eval": train_launches["eval"]["campplus_trunk"],
          "ms": ms(tr_kern), "plain_ms": ms(tr_plain), **tr_bound,
          "library_ms": None, "shape": "b256 x 3 s",
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),
@@ -1439,6 +1946,8 @@ def main():
          "cluster_sweep": sweep, "resident_clusters": resident},
     ], "embed_utt_per_s": 256e3 / embed_ms,
         "embed_16s_utt_per_s": 32e3 / embed16_ms, "serve": served,
+        "train_utt_per_s": training["fp32"]["train_utt_per_s"],
+        "train_utt_per_s_amp": training["amp"]["train_utt_per_s"],
         "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -435,3 +435,89 @@ def test_feature_methods_on_cuda_match_cpu(cuda, method, args):
     else:
         assert float(d.max()) < 2e-2
         assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3
+
+
+# ---- training (phase 10) ----------------------------------------------------
+def test_fbank_kernel_under_autograd_and_autocast(cuda):
+    """The train step featurizes under ``no_grad`` and outside autocast; the
+    wrapper also gives the same fp32 features, with no graph, when called
+    inside ``enable_grad`` or a bf16 ``autocast`` on a grad-free fp32
+    input."""
+    w = _waves(3, 8, 48000).to(cuda)
+    ref = fk.fbank_fused(w, n_mels=80)
+    with torch.enable_grad():
+        got = fk.fbank_fused(w, n_mels=80)
+        assert not got.requires_grad
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        amp = fk.fbank_fused(w, n_mels=80)
+    torch.cuda.synchronize()
+    assert got.dtype == amp.dtype == torch.float32
+    assert torch.equal(got, ref) and torch.equal(amp, ref)
+
+
+@pytest.fixture(scope="module")
+def corpus(cuda, tmp_path_factory):
+    from chip_smoke import synth_corpus
+
+    return synth_corpus(str(tmp_path_factory.mktemp("train")), n_train=8,
+                        clips=4, train_s=(1.0, 3.5), n_eval=3, enroll=1,
+                        trials=2, eval_s=(2.0, 12.0))
+
+
+def test_train_step_on_cuda_matches_cpu(cuda, corpus):
+    """One train step of a tiny CAM++ (init_channels 32) on the card
+    against the CPU: the same weights and batch, the card in fp32 and with
+    TF32 convs. Gates as chip_smoke.py phase 10 (``held_step_ok``) but the
+    per-leaf cos: in this tiny model the 1e-5 cutoff leaves leaves whose
+    gradient is rounding alone among the compared ones (one read cos -0.30
+    while the whole gradient read 0.99981; NVIDIA H100 80GB HBM3, 700 W)."""
+    from chip_smoke import held_step, held_step_ok, train_config
+
+    cfg, _ = train_config(corpus, **{
+        "dataset_conf.sampler.batch_size": 8,
+        "dataset_conf.dataLoader.num_workers": 2,
+        "model_conf.model_args": {"embd_dim": 32, "init_channels": 32}})
+    held = held_step(cfg, cuda)
+    assert held_step_ok(held, per_leaf=False), {
+        k: {n: v for n, v in h.items() if n != "grad_cos_worst"}
+        if isinstance(h, dict) else h for k, h in held.items()}
+
+
+def test_evaluate_takes_the_kernel_path_with_repacked_weights(cuda, corpus):
+    """The stock CAM++: a train step moves the weights, then evaluate()
+    runs the fbank, FCM and trunk kernels on weights packed in that call
+    (its embeddings match the plain model's at exact length), and the
+    model is back in train mode."""
+    from chip_smoke import cos_min, train_config
+    from voiceprintrecognition_paddlepaddle_torch.ops import features, kaldi
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    cfg, _ = train_config(corpus, **{
+        "dataset_conf.sampler.batch_size": 8,
+        "dataset_conf.dataLoader.num_workers": 2,
+        "model_conf.classifier.num_speakers": 8})
+    tr = Trainer(cfg, device=cuda)
+    tr._setup_dataloader(is_train=True)
+    tr._setup_model(80, is_train=True)
+    tr.model.train()
+    tr.classifier.train()
+    tr.step = 5 * len(tr.train_loader)          # the LR at its peak
+    kind, data, labels, lens = next(iter(tr.train_loader))
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    tr.train_step(kind, *(torch.from_numpy(x).to(cuda)
+                          for x in (data, labels, lens)))
+    assert any(not torch.equal(before[k], v)
+               for k, v in tr.model.state_dict().items())
+    launches = (fkm.fcm_fused.launches, tk.trunk_stats.launches)
+    eer, _, _ = tr.evaluate()
+    torch.cuda.synchronize()
+    assert 0.0 <= eer <= 1.0 and tr.model.training
+    assert fkm.fcm_fused.launches > launches[0]
+    assert tk.trunk_stats.launches > launches[1]
+    enroll, _ = tr.eval_embeddings["enroll"]
+    tr.model.eval()
+    with torch.no_grad():
+        for i in range(len(tr.enroll_dataset)):
+            x = torch.from_numpy(tr.enroll_dataset[i][0]).to(cuda)[None]
+            f = features.apply_cmn_and_mask(kaldi.fbank(x, n_mels=80))
+            assert cos_min(tr.model(f), enroll[i:i + 1]) > 0.999

@@ -173,3 +173,86 @@ def cos_min(a, b):
 def rel_err(ref, got):
     ref, got = np.asarray(ref), np.asarray(got)
     return float(np.abs(ref - got).max() / (np.abs(ref).max() + 1e-9))
+
+
+def write_wav(path, samples, sr=16000):
+    import wave
+
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
+                      .tobytes())
+
+
+def speaker_corpus(root, n_speakers=4, n_utts=6, seconds=(1.2, 1.2), seed=0):
+    """Seeded WAVs under ``root / "wavs"``: speaker ``s`` a harmonic stack
+    on f0 = 120 + 90 s Hz with noise (as ``tests/test_trainer_e2e.py``),
+    utterance lengths drawn from ``seconds``. Writes ``train_list.txt``,
+    ``enroll.txt`` (the first half of each speaker's utterances) and
+    ``trials.txt`` (the rest) and returns the three paths."""
+    import os
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root / "wavs", exist_ok=True)
+    lines = []
+    for spk in range(n_speakers):
+        f0 = 120 + 90 * spk
+        for u in range(n_utts):
+            t = np.arange(int(rng.uniform(*seconds) * 16000)) / 16000
+            sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.rand()) / h
+                      for h in range(1, 5))
+            sig = 0.3 * (sig + 0.05 * rng.randn(len(t)))
+            p = root / "wavs" / f"s{spk}_u{u}.wav"
+            write_wav(p, sig)
+            lines.append((u, f"{p}\t{spk}"))
+    paths = [root / n for n in ("train_list.txt", "enroll.txt", "trials.txt")]
+    half = n_utts // 2
+    for path, keep in zip(paths, (lambda u: True, lambda u: u < half,
+                                  lambda u: u >= half)):
+        path.write_text("\n".join(ln for u, ln in lines if keep(u)) + "\n",
+                        encoding="utf-8")
+    return [str(p) for p in paths]
+
+
+def train_configs(lists, model="TDNN", model_args=None, max_epoch=2,
+                  batch_size=8, n_mels=40, num_speakers=4, loss="AAMLoss",
+                  loss_args=None, optimizer="Adam", **train_conf):
+    """A small training config over ``speaker_corpus`` lists."""
+    train_list, enroll, trials = lists
+    return {
+        "dataset_conf": {
+            "dataset": {"min_duration": 0.3, "max_duration": 1.0,
+                        "sample_rate": 16000, "use_dB_normalization": True,
+                        "target_dB": -20},
+            "sampler": {"batch_size": batch_size, "shuffle": True,
+                        "drop_last": True},
+            "dataLoader": {"num_workers": 2},
+            "eval_conf": {"batch_size": 4, "max_duration": 2},
+            "train_list": train_list, "enroll_list": enroll,
+            "trials_list": trials,
+        },
+        "preprocess_conf": {"feature_method": "Fbank",
+                            "method_args": {"sr": 16000, "n_mels": n_mels}},
+        "model_conf": {
+            "model": model,
+            "model_args": model_args or {"embd_dim": 32, "channels": 32,
+                                         "pooling_type": "TSP"},
+            "classifier": {"classifier_type": "Cosine",
+                           "num_speakers": num_speakers, "num_blocks": 0},
+        },
+        "loss_conf": {"loss": loss,
+                      "loss_args": loss_args or {"margin": 0.2, "scale": 32},
+                      "use_margin_scheduler": True,
+                      "margin_scheduler_args": {"initial_margin": 0.0,
+                                                "final_margin": 0.3}},
+        "optimizer_conf": {"optimizer": optimizer,
+                           "optimizer_args": {"weight_decay": 1.0e-6},
+                           "scheduler": "WarmupCosineSchedulerLR",
+                           "scheduler_args": {"learning_rate": 0.01,
+                                              "min_lr": 1.0e-5,
+                                              "warmup_epoch": 1}},
+        "train_conf": {"enable_amp": False, "max_epoch": max_epoch,
+                       "log_interval": 1, **train_conf},
+    }

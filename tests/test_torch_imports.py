@@ -35,7 +35,11 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "infer_contrast", "infer_speaker_diarization", "models",
            "models.layers", "models.pooling", "models.tdnn",
            "models.ecapa_tdnn", "models.resnet_se", "models.res2net",
-           "models.eres2net", "models.fc", "ops.kaldi"]
+           "models.eres2net", "models.fc", "ops.kaldi", "trainer", "train",
+           "eval", "metric", "metric.metrics", "data_utils",
+           "data_utils.collate", "data_utils.reader", "data_utils.loader",
+           "data_utils.pk_sampler", "ops.augment", "loss", "loss.losses",
+           "optimizer", "optimizer.scheduler", "utils.checkpoint"]
 
 
 def test_importing_the_port_leaves_jax_out():

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import DenseBN, NonLinear
+from .layers import BatchNorm, DenseBN, NonLinear
 from .pooling import masked_mean_var
 
 __all__ = ["SDConv", "TDNNLayer", "CAMLayer", "CAMDenseTDNNLayer",
@@ -133,13 +133,13 @@ class BasicResBlock(nn.Module):
     def __init__(self, in_planes, planes, stride=1):
         super().__init__()
         self.Conv_0 = SDConv(in_planes, planes, stride)
-        self.BatchNorm_0 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(planes)
         self.Conv_1 = SDConv(planes, planes)
-        self.BatchNorm_1 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.BatchNorm_1 = BatchNorm(planes)
         self.has_shortcut = stride != 1 or in_planes != planes
         if self.has_shortcut:
             self.Conv_2 = nn.Conv2d(in_planes, planes, 1, stride=(stride, 1))
-            self.BatchNorm_2 = nn.BatchNorm2d(planes, eps=1e-5)
+            self.BatchNorm_2 = BatchNorm(planes)
 
     def forward(self, x):
         out = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
@@ -158,11 +158,11 @@ class FCM(nn.Module):
         super().__init__()
         m = m_channels
         self.Conv_0 = nn.Conv2d(1, m, 3, padding=1)
-        self.BatchNorm_0 = nn.BatchNorm2d(m, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(m)
         for i, stride in enumerate((2, 1, 2, 1)):
             setattr(self, f"BasicResBlock_{i}", BasicResBlock(m, m, stride))
         self.Conv_1 = SDConv(m, m, stride=2)
-        self.BatchNorm_1 = nn.BatchNorm2d(m, eps=1e-5)
+        self.BatchNorm_1 = BatchNorm(m)
 
     def forward(self, x):
         x = x.transpose(1, 2)[:, None]                       # (B, 1, F, T)

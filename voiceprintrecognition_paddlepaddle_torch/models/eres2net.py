@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BN2d, batch_norm, hardtanh_relu20
+from .layers import BN2d, BatchNorm, hardtanh_relu20
 from .pooling import TemporalStatsPool
 from .resnet_se import halved
 
@@ -121,7 +121,7 @@ class _ERes2NetBase(nn.Module):
         self.Dense_0 = nn.Linear(2 * f * fused_channels, embd_dim)
         self.two_emb_layer = two_emb_layer
         if two_emb_layer:
-            self.BatchNorm_0 = batch_norm(embd_dim)
+            self.BatchNorm_0 = BatchNorm(embd_dim)
             self.Dense_1 = nn.Linear(embd_dim, embd_dim)
 
     def _stage(self, i, x):

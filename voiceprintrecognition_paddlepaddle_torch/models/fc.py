@@ -4,7 +4,7 @@ Optional DenseBN blocks, then a Cosine head, ``normalize(x) @
 normalize(W, axis=0)`` in fp32 with ``weight`` of shape
 ``(in_dim, num_speakers * K)`` (K sub-centers), or a Linear head. Returns
 ``{"features", "logits"}``. Serving does not call it; a whole converted
-checkpoint loads into it, and training will need it.
+checkpoint loads into it, and the trainer trains it.
 """
 
 import torch
@@ -40,10 +40,11 @@ class SpeakerIdentification(nn.Module):
         for i in range(self.num_blocks):
             x = getattr(self, f"DenseBN_{i}")(x)
         if self.classifier_type == "Cosine":
-            # fp32 logits: the margin losses derive sin(theta) from
-            # sqrt(1 - cos^2)
-            x_n = F.normalize(x.float(), dim=-1, eps=1e-12)
-            w_n = F.normalize(self.weight.float(), dim=0, eps=1e-12)
+            # fp32 logits (or wider): the margin losses derive sin(theta)
+            # from sqrt(1 - cos^2)
+            dtype = torch.promote_types(x.dtype, torch.float32)
+            x_n = F.normalize(x.to(dtype), dim=-1, eps=1e-12)
+            w_n = F.normalize(self.weight.to(dtype), dim=0, eps=1e-12)
             logits = x_n @ w_n
         else:
             logits = self.Dense_0(x)

@@ -3,25 +3,61 @@
 Layouts: 1-D (temporal) modules run torch's ``(B, C, T)``; 2-D modules
 run NCHW ``(B, C, F, T)``. Attribute names follow the flax parameter tree
 (``Conv_0``, ``BatchNorm_0``, ``SamePadConv1d_0``, ...) so that
-``convert.jax_to_torch_state`` is a plain tree walk. BatchNorm uses the
-reference's eps 1e-5 (momentum only matters for training, which the port
-does not run yet).
+``convert.jax_to_torch_state`` is a plain tree walk. Every BatchNorm is
+``BatchNorm``: the reference's eps 1e-5, and in training flax's
+``nn.BatchNorm(momentum=0.9)`` update of the running statistics.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BN_EPS", "batch_norm", "bn_affine", "length_to_mask",
+__all__ = ["BN_EPS", "BatchNorm", "bn_affine", "length_to_mask",
            "hardtanh_relu20", "SamePadConv1d", "BatchNorm1d", "BN2d",
            "TDNNBlock", "NonLinear", "DenseBN", "avg_pool_exclusive"]
 
 BN_EPS = 1e-5
 
 
-def batch_norm(channels):
-    """BatchNorm over the channel axis of an NC* tensor, reference eps."""
-    return nn.BatchNorm1d(channels, eps=BN_EPS)
+class BatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the channel axis 1 of an NC* tensor of any rank, with
+    scale and bias (JAX ``layers.py:65-72``, ``campplus.py:62-63``).
+
+    Evaluation normalizes by the running statistics, as ``nn.BatchNorm1d``
+    does. Training normalizes by the batch statistics and then moves the
+    running ones by ``momentum`` 0.1 (flax's 0.9) towards the batch mean
+    and the *biased* batch variance, as flax does; torch's own update takes
+    the unbiased variance, ``n / (n - 1)`` times larger. Torch's fused
+    update runs first and the variance is then corrected on the ``(C,)``
+    vector: no second pass over the activations. ``momentum=None`` (a
+    cumulative average, as ``nn.BatchNorm1d``) keeps the same correction.
+    """
+
+    def __init__(self, channels, eps=BN_EPS, momentum=0.1):
+        super().__init__(channels, eps=eps, momentum=momentum)
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f"expected an NC* input, got {x.dim()}-D")
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        factor = (self.momentum if self.momentum is not None
+                  else 1.0 / float(self.num_batches_tracked))
+        # torch's update lands in a copy (autograd keeps the tensors the
+        # op was given, so the buffer itself must not change after it)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, factor, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # torch folded in factor * v * n / (n - 1); take
+            # factor * v / (n - 1) back out: what remains is factor * v
+            self.running_var.copy_(
+                var - (var - (1.0 - factor) * self.running_var) / n)
+        return y
 
 
 def bn_affine(bn):
@@ -74,7 +110,7 @@ class BatchNorm1d(nn.Module):
 
     def __init__(self, channels):
         super().__init__()
-        self.BatchNorm_0 = batch_norm(channels)
+        self.BatchNorm_0 = BatchNorm(channels)
 
     def forward(self, x):
         return self.BatchNorm_0(x)
@@ -86,7 +122,7 @@ class BN2d(nn.Module):
 
     def __init__(self, channels):
         super().__init__()
-        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.BatchNorm_0 = BatchNorm(channels)
 
     def forward(self, x):
         return self.BatchNorm_0(x)
@@ -121,7 +157,7 @@ class _Stack(nn.Module):
             elif name in ("batchnorm", "batchnorm_"):
                 n = sum(o.startswith("BatchNorm") for o in self._ops)
                 bn = f"BatchNorm_{n}"
-                setattr(self, bn, batch_norm(channels))
+                setattr(self, bn, BatchNorm(channels))
                 self._ops.append(bn)
             elif name == "prelu":
                 self.prelu_alpha = nn.Parameter(torch.full((channels,), 0.25))

@@ -1,5 +1,5 @@
-from .audio_native import (decode_wav_native, native_library,
-                           resample_native, rms_db_native)
+from .audio_native import (decode_wav_native, load_batch_native,
+                           native_library, resample_native, rms_db_native)
 
 __all__ = ["decode_wav_native", "resample_native", "rms_db_native",
-           "native_library"]
+           "load_batch_native", "native_library"]

@@ -20,7 +20,7 @@ import threading
 import numpy as np
 
 __all__ = ["decode_wav_native", "resample_native", "rms_db_native",
-           "native_library"]
+           "load_batch_native", "native_library"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "audioio.cpp")
@@ -76,6 +76,14 @@ def native_library():
         lib.vpr_rms_db.restype = ctypes.c_double
         lib.vpr_rms_db.argtypes = [ctypes.POINTER(ctypes.c_float),
                                    ctypes.c_int64]
+        lib.vpr_load_batch.restype = ctypes.c_int
+        lib.vpr_load_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int32]
         lib.vpr_free.restype = None
         lib.vpr_free.argtypes = [ctypes.c_void_p]
         _lib = lib
@@ -129,3 +137,40 @@ def rms_db_native(samples):
     return float(lib.vpr_rms_db(
         samples.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         samples.shape[0]))
+
+
+def load_batch_native(paths, target_sr, target_len, speeds=None,
+                      crop_fracs=None, n_threads=None):
+    """Train batches in one GIL-free call (JAX ``audio_native.py:166-204``):
+    read, decode, resample (sample rate x speed perturb), crop and int16
+    quantize every path in a C++ thread pool.
+
+    ``speeds``: per-item (num, den) speed fractions ((9, 10) = 0.9x
+    playback, a longer signal); ``crop_fracs``: per-item crop-start
+    fractions in [0, 1). Returns ``(int16 (N, target_len), valid (N,)
+    int64, duration_s (N,) float64)``; ``valid[i] < 0`` marks an item the
+    library could not read (the caller loads it on its own)."""
+    lib = native_library()
+    n = len(paths)
+    c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    num = np.ones(n, np.int32) if speeds is None else \
+        np.ascontiguousarray([s[0] for s in speeds], dtype=np.int32)
+    den = np.ones(n, np.int32) if speeds is None else \
+        np.ascontiguousarray([s[1] for s in speeds], dtype=np.int32)
+    fracs = (np.zeros(n, np.float32) if crop_fracs is None
+             else np.ascontiguousarray(crop_fracs, dtype=np.float32))
+    out = np.empty((n, int(target_len)), np.int16)
+    valid = np.empty(n, np.int64)
+    dur = np.empty(n, np.float64)
+    if n_threads is None:
+        n_threads = min(n, os.cpu_count() or 1)
+    lib.vpr_load_batch(
+        c_paths, n, int(target_sr), int(target_len),
+        num.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        den.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        fracs.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        valid.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        dur.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        int(n_threads))
+    return out, valid, dur

@@ -55,12 +55,24 @@ from .ops.features import AudioFeaturizer
 from .utils.logger import logger
 from .utils.utils import dict_to_object
 
-__all__ = ["Predictor", "PPVectorPredictor", "MAX_KERNEL_BUCKET_SAMPLES"]
+__all__ = ["Predictor", "PPVectorPredictor", "MAX_KERNEL_BUCKET_SAMPLES",
+           "campplus_kernel_path_applies"]
 
 # longest bucket the kernel path serves: 32 s at 16 kHz (3198 frames, the
 # trunk kernel's MAX_T_RAW); the JAX Predictor's 640,000-sample fast-path
 # cap admits the same buckets
 MAX_KERNEL_BUCKET_SAMPLES = 512000
+
+
+def campplus_kernel_path_applies(model, featurizer):
+    """The stock CAM++ on the 80-mel Fbank front end without dither (JAX
+    ``_maybe_make_fast_embed``, ``predict.py:123-133``): the configuration
+    the kernel path serves."""
+    return (isinstance(model, CAMPPlus) and model.growth_rate == 32
+            and model.init_channels == 128 and model.bn_size == 4
+            and model.config_str == "batchnorm-relu"
+            and featurizer.feature_method == "Fbank"
+            and featurizer.feature_dim == 80 and featurizer.dither == 0.0)
 
 
 def _load_configs(configs):
@@ -99,7 +111,7 @@ class Predictor:
         self.model.to(self.device).eval()
         logger.info(f"loaded model weights: {model_path}")
         self._embed = None
-        if self._kernel_path_applies():
+        if campplus_kernel_path_applies(self.model, self._audio_featurizer):
             self._embed = make_campplus_masked_embed_fn(
                 self.model, self._audio_featurizer)
             if self.device.type == "cuda":
@@ -119,16 +131,6 @@ class Predictor:
                                                    "audio_indexes.bin")
             self.__load_audio_db(self.audio_db_path)
         self.speaker_diarize = SpeakerDiarization()
-
-    def _kernel_path_applies(self):
-        """The stock CAM++ on the 80-mel Fbank front end without dither
-        (JAX ``_maybe_make_fast_embed``, ``predict.py:123-133``)."""
-        m, feat = self.model, self._audio_featurizer
-        return (isinstance(m, CAMPPlus) and m.growth_rate == 32
-                and m.init_channels == 128 and m.bn_size == 4
-                and m.config_str == "batchnorm-relu"
-                and feat.feature_method == "Fbank"
-                and feat.feature_dim == 80 and feat.dither == 0.0)
 
     # ------------------------------------------------------------------
     # audio db persistence (pickle format of reference predict.py:89-109)

@@ -1,0 +1,643 @@
+"""Training and evaluation (counterpart of the JAX ``trainer.py``;
+reference ``ppvector/trainer.py:33-474``).
+
+``Trainer(configs, device="cuda", data_augment_configs=None)`` takes a
+dict or a YAML path. ``device="cuda"`` raises when no CUDA device is
+present; ``device="cpu"`` runs every wrapper's plain version.
+
+The train step, in the JAX step's order (``trainer.py:351-411``):
+
+1. int16 -> float / 32768;
+2. ``DeviceAugmenter`` (volume, noise, reverb, then the dB normalization,
+   on every step), draws from the trainer's ``torch.Generator``;
+3. ``AudioFeaturizer``: the fbank kernel on the card for the stock Fbank,
+   under ``torch.no_grad()`` and outside ``autocast`` (fp32 features, as
+   JAX featurizes in fp32);
+4. SpecAugment;
+5. the backbone in train mode with ``lengths=ratios``, the classifier, the
+   loss with the scheduled margin, under ``torch.autocast`` bf16 when
+   ``train_conf.enable_amp``;
+6. backward, and every ``train_conf.accum_steps``-th step the optimizer
+   update on the mean of the microbatch gradients (optax ``MultiSteps``)
+   with ``lr = schedule(update)``, the update counted from 0;
+7. accuracy over the sub-center max.
+
+No kernel has a backward: the backbone trains as the plain modules under
+autograd, as in JAX.
+
+``evaluate()`` embeds the enroll and trials lists with the model in eval
+mode and scores every pair with one matmul on the device. On CUDA the
+stock CAM++ (``predict.campplus_kernel_path_applies``) embeds buckets up to
+32 s through the fbank, FCM and trunk kernels
+(``trunk_kernel.make_campplus_masked_embed_fn``), with the weights packed
+anew on every call; other buckets and configs run the plain model. Unlike
+the JAX trainer (``trainer.py:804-815``), a kernel that fails raises: the
+evaluation never falls back.
+
+Deferred (``NotImplementedError`` naming the ROADMAP item): ``extract_features``,
+``export``, ``train_conf.enable_remat``, ``optimizer_args.mu_dtype``,
+``train(profiler_dir=...)``, more than one device
+(``train_conf.num_devices``) and ``train_conf.checkpoint_format: orbax``.
+"""
+
+import os
+import time
+from datetime import timedelta
+
+import numpy as np
+import torch
+
+from .data_utils import (BatchSampler, DataLoader, PKSampler, SpeakerDataset,
+                         collate_features, collate_waveforms)
+from .loss import build_loss
+from .metric.metrics import compute_dcf, compute_eer, compute_fnr_fpr
+from .models import build_model
+from .models.fc import SpeakerIdentification
+from .models.trunk_kernel import make_campplus_masked_embed_fn
+from .ops.augment import DeviceAugmenter
+from .ops.features import AudioFeaturizer
+from .optimizer import (MarginScheduler, build_lr_scheduler, build_optimizer,
+                        scheduled_step)
+from .predict import (MAX_KERNEL_BUCKET_SAMPLES, _load_configs,
+                      campplus_kernel_path_applies)
+from .utils.checkpoint import (AsyncSaver, load_checkpoint, load_pretrained,
+                               save_checkpoint)
+from .utils.logger import logger
+from .utils.utils import dict_to_object, print_arguments
+
+__all__ = ["Trainer", "PPVectorTrainer"]
+
+# ROADMAP.md, queue 1, "training: deferred": one entry per option
+_DEFERRED = {
+    "extract_features": "extract_features",
+    "export": "export",
+    "enable_remat": "remat",
+    "mu_dtype": "mu_dtype",
+    "profiler_dir": "the profiler hook",
+    "num_devices": "data parallelism (DDP)",
+    "checkpoint_format": "data parallelism (DDP), with sharded checkpoints",
+}
+
+
+def _deferred(what):
+    return NotImplementedError(
+        f"{what} is not in the PyTorch port yet (ROADMAP.md, queue 1, "
+        f"training, deferred: {_DEFERRED[what]})")
+
+
+class Trainer:
+    def __init__(self, configs, device="cuda", data_augment_configs=None):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' to run on the CPU")
+        if isinstance(configs, str):
+            configs = _load_configs(configs)
+            print_arguments(configs=configs)
+        self.configs = dict_to_object(configs)
+        if isinstance(data_augment_configs, str):
+            if not data_augment_configs.strip():
+                data_augment_configs = None  # '' on the CLI = no augmentation
+            else:
+                data_augment_configs = _load_configs(data_augment_configs)
+                print_arguments(configs=data_augment_configs,
+                                title="augmentation configs")
+        self.data_augment_configs = dict_to_object(data_augment_configs or {})
+        train_conf = self.configs.get("train_conf", {})
+        if train_conf.get("enable_remat", False):
+            raise _deferred("enable_remat")
+        if int(train_conf.get("num_devices", 0) or 0) > 1:
+            raise _deferred("num_devices")
+        if train_conf.get("checkpoint_format", "torch") not in ("torch",
+                                                                "msgpack"):
+            raise _deferred("checkpoint_format")
+        if (self.configs.get("optimizer_conf", {}).get("optimizer_args", {})
+                .get("mu_dtype") is not None):
+            raise _deferred("mu_dtype")
+        self.amp = bool(train_conf.get("enable_amp", False))
+
+        self.audio_featurizer = None
+        self.train_dataset = self.train_loader = None
+        self.enroll_dataset = self.enroll_loader = None
+        self.trials_dataset = self.trials_loader = None
+        self.model = self.classifier = self.criterion = None
+        self.optimizer = None
+        self.param_names = []
+        self.margin_scheduler = None
+        self.lr_schedule = None
+        self.accum_steps = 1
+        self.augmenter = None
+        self.step = 0
+        self.max_step = 0
+        self.train_loss = self.train_acc = None
+        self.train_eta_sec = None
+        self.train_window_speeds = []
+        self.eval_eer = self.eval_min_dcf = self.eval_threshold = None
+        self.eval_embeddings = None
+        self._banks = None
+        self.test_log_step = self.train_log_step = 0
+        self.stop_train = self.stop_eval = False
+        # augmentation and dither draws: one generator on the train device
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(1000)
+
+    # ------------------------------------------------------------------
+    # setup
+    # ------------------------------------------------------------------
+    def _loss_name(self):
+        return self.configs.loss_conf.get(
+            "loss", self.configs.loss_conf.get("use_loss", "AAMLoss"))
+
+    def _setup_dataloader(self, is_train=False):
+        self.audio_featurizer = AudioFeaturizer(
+            feature_method=self.configs.preprocess_conf.feature_method,
+            method_args=self.configs.preprocess_conf.get("method_args", {}))
+        dataset_args = dict(self.configs.dataset_conf.get("dataset", {}))
+        sampler_args = dict(self.configs.dataset_conf.get("sampler", {}))
+        loader_args = dict(self.configs.dataset_conf.get("dataLoader", {}))
+        max_feature_len = self.audio_featurizer.num_frames(
+            int(dataset_args.get("max_duration", 3)
+                * dataset_args.get("sample_rate", 16000)))
+        workers = loader_args.get("num_workers", 4)
+        if is_train:
+            self.train_dataset = SpeakerDataset(
+                data_list_path=self.configs.dataset_conf.train_list,
+                aug_conf=self.data_augment_configs,
+                num_speakers=self.configs.model_conf.classifier.num_speakers,
+                mode="train", max_feature_len=max_feature_len,
+                **dataset_args)
+            if (self.configs.dataset_conf.get("is_use_pksampler", False)
+                    or self._loss_name() == "TripletAngularMarginLoss"):
+                sampler = PKSampler(
+                    self.train_dataset,
+                    sample_per_id=self.configs.dataset_conf.get(
+                        "sample_per_id", 4), **sampler_args)
+            else:
+                sampler = BatchSampler(self.train_dataset, **sampler_args)
+            self.train_loader = DataLoader(self.train_dataset, sampler,
+                                           self._train_collate,
+                                           num_workers=workers)
+        # eval loaders (reference ``trainer.py:113-131``)
+        eval_args = dict(dataset_args)
+        eval_args["max_duration"] = \
+            self.configs.dataset_conf.eval_conf.max_duration
+        eval_bs = self.configs.dataset_conf.eval_conf.batch_size
+        for attr, list_key in (("enroll", "enroll_list"),
+                               ("trials", "trials_list")):
+            list_path = self.configs.dataset_conf.get(list_key)
+            if not list_path or not os.path.exists(list_path):
+                continue
+            ds = SpeakerDataset(data_list_path=list_path, mode="eval",
+                                **eval_args)
+            sampler = BatchSampler(ds, batch_size=eval_bs, shuffle=False,
+                                   drop_last=False)
+            setattr(self, f"{attr}_dataset", ds)
+            setattr(self, f"{attr}_loader",
+                    DataLoader(ds, sampler, self._eval_collate,
+                               num_workers=workers))
+
+    @staticmethod
+    def _train_collate(items):
+        if items[0][0].ndim == 2:  # precomputed features
+            return ("features",) + collate_features(items, bucket=True)
+        # int16 transfer: half the host-to-device bytes
+        return ("waveforms",) + collate_waveforms(items, bucket=False,
+                                                  quantize_int16=True)
+
+    @staticmethod
+    def _eval_collate(items):
+        if items[0][0].ndim == 2:
+            return ("features",) + collate_features(items, bucket=True)
+        return ("waveforms",) + collate_waveforms(items, bucket=True)
+
+    def _setup_model(self, input_size, is_train=False):
+        dataset_args = self.configs.dataset_conf.get("dataset", {})
+        t_probe = max(self.audio_featurizer.num_frames(
+            int(dataset_args.get("max_duration", 3) * 16000)), 98)
+        # initial weights from a seed (the reference seeds 1000) without
+        # touching the caller's global RNG state
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(1000)
+            self.model = build_model(input_size, self.configs)
+            with torch.no_grad():
+                emb_dim = self.model.eval()(
+                    torch.zeros(2, t_probe, input_size)).shape[-1]
+            if is_train:
+                num_class = self.configs.model_conf.classifier.num_speakers
+                speed_conf = self.data_augment_configs.get("speed") or {}
+                if (speed_conf.get("prob", 0) > 0
+                        and speed_conf.get("speed_perturb_3_class", False)):
+                    num_class *= 3
+                cls_conf = dict(self.configs.model_conf.classifier)
+                cls_conf["num_speakers"] = num_class
+                self.classifier = SpeakerIdentification(emb_dim, **cls_conf)
+                self.criterion = build_loss(self.configs)
+        self.model.to(self.device)
+        n = sum(p.numel() for p in self.model.parameters())
+        logger.info(f"backbone parameters: {n / 1e6:.2f}M "
+                    f"({self.configs.model_conf.model})")
+        if not is_train:
+            return
+        self.classifier.to(self.device)
+        self.criterion.to(self.device)
+        if self.configs.loss_conf.get("use_margin_scheduler", False):
+            ms_args = dict(
+                increase_start_epoch=int(
+                    self.configs.train_conf.max_epoch * 0.3),
+                fix_epoch=int(self.configs.train_conf.max_epoch * 0.7),
+                initial_margin=0.0, final_margin=0.3)
+            ms_args.update(self.configs.loss_conf.get(
+                "margin_scheduler_args", {}))
+            self.margin_scheduler = MarginScheduler(
+                criterion=self.criterion,
+                step_per_epoch=len(self.train_loader), **ms_args)
+        # gradient accumulation: the LR schedule paces on optimizer updates
+        self.accum_steps = max(int(self.configs.train_conf.get(
+            "accum_steps", 1)), 1)
+        self.lr_schedule = build_lr_scheduler(
+            step_per_epoch=max(len(self.train_loader) // self.accum_steps, 1),
+            configs=self.configs)
+        named = [(f"{prefix}.{n}", p) for prefix, mod in (
+            ("model", self.model), ("classifier", self.classifier),
+            ("loss", self.criterion)) for n, p in mod.named_parameters()]
+        self.param_names = [n for n, _ in named]
+        self.optimizer = build_optimizer(
+            [p for _, p in named], self.configs,
+            fused=True if self.device.type == "cuda" else None)
+        if self.accum_steps > 1:
+            logger.info(f"gradient accumulation: {self.accum_steps} "
+                        f"microbatches per optimizer update")
+        self.augmenter = DeviceAugmenter(
+            self.data_augment_configs,
+            sample_rate=dataset_args.get("sample_rate", 16000),
+            clip_seconds=dataset_args.get("max_duration", 3),
+            target_db=(dataset_args.get("target_dB", -20)
+                       if dataset_args.get("use_dB_normalization", True)
+                       else None))
+
+    # ------------------------------------------------------------------
+    # train state
+    # ------------------------------------------------------------------
+    def train_state(self):
+        """The live train state (``utils/checkpoint.py``'s five entries)."""
+        return {"model": self.model.state_dict(),
+                "classifier": self.classifier.state_dict(),
+                "loss": self.criterion.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step}
+
+    def load_train_state(self, state):
+        """Load a train state (a checkpoint's, or
+        ``convert.jax_to_torch_train_state``'s) into the modules and the
+        optimizer. The optimizer keeps its own hyperparameters."""
+        self.model.load_state_dict(state["model"])
+        self.classifier.load_state_dict(state["classifier"])
+        self.criterion.load_state_dict(state["loss"])
+        opt = dict(state["optimizer"])
+        opt["param_groups"] = [
+            {**saved, **{k: v for k, v in cur.items() if k != "params"}}
+            for saved, cur in zip(opt["param_groups"],
+                                  self.optimizer.param_groups)]
+        self.optimizer.load_state_dict(opt)
+        self.step = int(state["step"])
+
+    @property
+    def updates(self):
+        """Optimizer updates so far (the LR schedule's step)."""
+        return self.step // self.accum_steps
+
+    def _margin(self):
+        return (self.margin_scheduler.get_margin()
+                if self.margin_scheduler else
+                self.configs.loss_conf.get("loss_args", {}).get("margin", 0.2))
+
+    # ------------------------------------------------------------------
+    # the hot path
+    # ------------------------------------------------------------------
+    def featurize(self, kind, data, lens):
+        """One batch on the device -> augmented fp32 features ``(B, T, F)``
+        (steps 1-4 of the train step); no autograd graph."""
+        with torch.no_grad():
+            if kind == "waveforms":
+                waves = data
+                if waves.dtype == torch.int16:
+                    waves = waves.to(torch.float32) / 32768.0
+                waves = self.augmenter(waves, self._gen, valid_ratio=lens,
+                                       banks=self._banks)
+                rng = self._gen if self.audio_featurizer.dither > 0 else None
+                feats = self.audio_featurizer(waves, input_lens_ratio=lens,
+                                              rng=rng)
+            else:
+                feats = data
+            return self.augmenter.augment_features(feats, self._gen)
+
+    def train_step(self, kind, data, labels, lens):
+        """One microbatch already on the device; returns ``(loss, acc)``
+        as device scalars (no host sync)."""
+        feats = self.featurize(kind, data, lens)
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.amp):
+            emb = self.model(feats, lengths=lens)
+            outputs = self.classifier(emb)
+            loss = self.criterion(outputs, labels, margin=self._margin())
+        (loss / self.accum_steps if self.accum_steps > 1 else loss).backward()
+        self.step += 1
+        scheduled_step(self.optimizer, self.lr_schedule, self.step,
+                       self.accum_steps)
+        with torch.no_grad():
+            logits = outputs["logits"].detach()
+            if self._loss_name() == "SubCenterLoss":
+                k = self.configs.loss_conf.get("loss_args", {}).get("K", 3)
+                logits = torch.amax(logits.reshape(logits.shape[0], -1, k), 2)
+            acc = (torch.argmax(logits, dim=-1) == labels).float().mean()
+        return loss.detach(), acc
+
+    def _to_device(self, arr):
+        t = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    # ------------------------------------------------------------------
+    # public API (reference surface)
+    # ------------------------------------------------------------------
+    def train(self, save_model_path="models/", log_dir="log/",
+              resume_model=None, pretrained_model=None, do_eval=True,
+              max_epochs=None, profiler_dir=None):
+        if profiler_dir is not None:
+            raise _deferred("profiler_dir")
+        self.train_window_speeds = []
+        writer = None
+        if log_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                writer = SummaryWriter(log_dir=log_dir)
+            except Exception as e:  # noqa: BLE001 - tensorboard is optional
+                logger.warning(f"tensorboard writer unavailable: {e}")
+
+        self._setup_dataloader(is_train=True)
+        self._setup_model(self.audio_featurizer.feature_dim, is_train=True)
+        if pretrained_model is not None:
+            load_pretrained({"model": self.model,
+                             "classifier": self.classifier,
+                             "loss": self.criterion}, pretrained_model)
+        last_epoch, best_eer = 0, 1.0
+        if save_model_path or resume_model:
+            _, last_epoch, best_eer = load_checkpoint(
+                self.configs, self.load_train_state, save_model_path or "",
+                resume_model)
+        if self.margin_scheduler:
+            self.margin_scheduler.step(current_step=self.step)
+        if last_epoch:
+            # resume continues the (seed, epoch) sample stream
+            self.train_loader.batch_sampler.set_epoch(last_epoch)
+        logger.info(f"train data: {len(self.train_dataset)}, device: "
+                    f"{self.device}")
+        self.model.train()
+        self.classifier.train()
+        max_epoch = max_epochs or self.configs.train_conf.max_epoch
+        self.max_step = len(self.train_loader) * max_epoch
+        self.test_log_step = self.train_log_step = 0
+        self._async_saver = (
+            AsyncSaver() if (save_model_path and self.configs.train_conf.get(
+                "async_checkpoint", True)) else None)
+        try:
+            self._train_epochs(last_epoch, max_epoch, writer,
+                               save_model_path, do_eval, best_eer)
+        finally:
+            if self._async_saver is not None:
+                self._async_saver.close()
+                self._async_saver = None
+            if writer is not None:
+                writer.close()
+
+    def _save(self, save_model_path, epoch_id, **kw):
+        save_checkpoint(self.configs, self.train_state(), save_model_path,
+                        epoch_id, margin=self._margin(),
+                        async_saver=self._async_saver, **kw)
+
+    def _train_epochs(self, last_epoch, max_epoch, writer, save_model_path,
+                      do_eval, best_eer):
+        for epoch_id in range(last_epoch + 1, max_epoch + 1):
+            if self.stop_train:
+                break
+            start_epoch = time.time()
+            self._train_epoch(epoch_id, max_epoch, writer, save_model_path)
+            eval_ok = False
+            if do_eval and not self.stop_eval:
+                logger.info("=" * 70)
+                try:
+                    (self.eval_eer, self.eval_min_dcf,
+                     self.eval_threshold) = self.evaluate()
+                    eval_ok = True
+                except Exception:
+                    # a broken eval config (e.g. a missing trials list) must
+                    # not discard the epoch: log it and save the epoch
+                    logger.exception("per-epoch evaluation failed; the epoch "
+                                     "checkpoint is still saved below")
+            if eval_ok:
+                logger.info(
+                    f"Test epoch: {epoch_id}, time/epoch: "
+                    f"{timedelta(seconds=int(time.time() - start_epoch))}, "
+                    f"threshold: {self.eval_threshold:.2f}, "
+                    f"EER: {self.eval_eer:.5f}, "
+                    f"MinDCF: {self.eval_min_dcf:.5f}")
+                logger.info("=" * 70)
+                if writer is not None:
+                    writer.add_scalar("Test/threshold", self.eval_threshold,
+                                      self.test_log_step)
+                    writer.add_scalar("Test/min_dcf", self.eval_min_dcf,
+                                      self.test_log_step)
+                    writer.add_scalar("Test/eer", self.eval_eer,
+                                      self.test_log_step)
+                self.test_log_step += 1
+                if self.eval_eer <= best_eer and save_model_path:
+                    best_eer = self.eval_eer
+                    self._save(save_model_path, epoch_id, eer=self.eval_eer,
+                               min_dcf=self.eval_min_dcf,
+                               threshold=self.eval_threshold, best_model=True)
+            if save_model_path:
+                self._save(save_model_path, epoch_id, eer=self.eval_eer,
+                           min_dcf=self.eval_min_dcf,
+                           threshold=self.eval_threshold)
+
+    def _train_epoch(self, epoch_id, max_epoch, writer, save_model_path):
+        batch_size = self.configs.dataset_conf.sampler.batch_size
+        log_interval = self.configs.train_conf.log_interval
+        last_log_time, last_log_batch = time.time(), 0
+        # per-epoch refresh of the noise / RIR banks
+        self._banks = self.augmenter.device_banks(epoch_id, self.device)
+        for batch_id, (kind, data, labels, lens) in enumerate(
+                self.train_loader):
+            if self.stop_train:
+                break
+            if self.margin_scheduler:
+                self.margin_scheduler.step(current_step=self.step)
+            data, labels, lens = (self._to_device(x)
+                                  for x in (data, labels, lens))
+            loss, acc = self.train_step(kind, data, labels, lens)
+            if batch_id % log_interval == 0:
+                self.train_loss, self.train_acc = float(loss), float(acc)
+                now = time.time()
+                step_sec = (now - last_log_time) / max(batch_id
+                                                       - last_log_batch, 1)
+                last_log_time, last_log_batch = now, batch_id
+                train_speed = batch_size / step_sec
+                self.train_window_speeds.append(train_speed)
+                self.train_eta_sec = step_sec * (self.max_step - self.step)
+                lr = self.lr_schedule(self.updates)
+                margin_str = (f"margin: {self._margin():.5f}"
+                              if self.margin_scheduler else "")
+                logger.info(
+                    f"Train epoch: [{epoch_id}/{max_epoch}], "
+                    f"batch: [{batch_id}/{len(self.train_loader)}], "
+                    f"loss: {self.train_loss:.5f}, "
+                    f"accuracy: {self.train_acc:.5f}, "
+                    f"learning rate: {lr:.8f}, {margin_str} "
+                    f"speed: {train_speed:.2f} data/sec, "
+                    f"eta: {timedelta(seconds=int(self.train_eta_sec))}")
+                if writer is not None:
+                    for tag, v in (("Train/Loss", self.train_loss),
+                                   ("Train/Accuracy", self.train_acc),
+                                   ("Train/lr", lr)):
+                        writer.add_scalar(tag, v, self.train_log_step)
+                    if self.margin_scheduler:
+                        writer.add_scalar("Train/margin", self._margin(),
+                                          self.train_log_step)
+                self.train_log_step += 1
+            if batch_id % 10000 == 0 and batch_id != 0 and save_model_path:
+                # the epoch is not complete: record epoch_id - 1 so that a
+                # resume replays this epoch from these weights
+                self._save(save_model_path, epoch_id,
+                           completed_epoch=epoch_id - 1)
+
+    # ------------------------------------------------------------------
+    def _eval_embed_fn(self):
+        """``(waves tensor, ratios numpy) -> embeddings`` for the kernel
+        path with the current weights packed now, or None where the plain
+        model serves every batch."""
+        if (self.device.type == "cuda"
+                and campplus_kernel_path_applies(self.model,
+                                                 self.audio_featurizer)):
+            return make_campplus_masked_embed_fn(self.model,
+                                                 self.audio_featurizer)
+        return None
+
+    @torch.no_grad()
+    def _embed_plain(self, kind, data, lens):
+        if kind == "waveforms":
+            rng = None
+            if self.audio_featurizer.dither > 0:
+                # a fixed seed: a reproducible eval dither (JAX: PRNGKey(0))
+                rng = torch.Generator(device=self.device)
+                rng.manual_seed(0)
+            feats = self.audio_featurizer(data, input_lens_ratio=lens,
+                                          rng=rng)
+        else:
+            feats = data
+        return self.model(feats, lengths=lens).float()
+
+    def _embed_loader(self, loader, fast):
+        feats, labels = [], []
+        for kind, data, y, lens in loader:
+            if self.stop_eval:
+                break
+            x = self._to_device(data)
+            if (fast is not None and kind == "waveforms"
+                    and data.shape[1] <= MAX_KERNEL_BUCKET_SAMPLES):
+                emb = fast(x, lens)
+            else:
+                emb = self._embed_plain(kind, x, self._to_device(lens))
+            feats.append(emb.float())
+            labels.append(y)
+        emb_dim = feats[0].shape[1] if feats else 0
+        feats = (torch.cat(feats) if feats else
+                 torch.zeros((0, emb_dim), device=self.device))
+        labels = (np.concatenate(labels).astype(np.int32) if labels
+                  else np.zeros((0,), np.int32))
+        return feats, labels
+
+    def evaluate(self, resume_model=None, save_image_path=None):
+        """Returns ``(eer, min_dcf, threshold)``; the embeddings stay in
+        ``self.eval_embeddings`` (``{"enroll": (tensor, labels),
+        "trials": ...}``)."""
+        if self.enroll_loader is None or self.trials_loader is None:
+            self._setup_dataloader()
+        if self.enroll_loader is None or self.trials_loader is None:
+            raise FileNotFoundError(
+                "evaluate() needs dataset_conf.enroll_list and "
+                "dataset_conf.trials_list to exist "
+                f"(enroll_list={self.configs.dataset_conf.get('enroll_list')}, "
+                f"trials_list={self.configs.dataset_conf.get('trials_list')})")
+        if self.model is None:
+            self._setup_model(self.audio_featurizer.feature_dim)
+        if resume_model is not None:
+            load_pretrained({"model": self.model}, resume_model)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            fast = self._eval_embed_fn()
+            enroll = self._embed_loader(self.enroll_loader, fast)
+            trials = self._embed_loader(self.trials_loader, fast)
+        finally:
+            self.model.train(was_training)
+        self.eval_embeddings = {"enroll": enroll, "trials": trials}
+        if self.stop_eval:
+            return -1, -1, -1
+        scores, match = self._score_all(trials[0], enroll[0], trials[1],
+                                        enroll[1])
+        fnr, fpr, thresholds = compute_fnr_fpr(scores, match)
+        eer, threshold = compute_eer(fnr, fpr, scores)
+        min_dcf = compute_dcf(fnr, fpr)
+        eer, min_dcf, threshold = float(eer), float(min_dcf), float(threshold)
+        if save_image_path:
+            self._plot(fnr, fpr, thresholds, threshold, save_image_path)
+        return eer, min_dcf, threshold
+
+    @staticmethod
+    def _plot(fnr, fpr, thresholds, threshold, save_image_path):
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        index = int(np.argmin(np.abs(thresholds - threshold)))
+        plt.figure()
+        plt.plot(thresholds, fnr, color="blue", linestyle="-", label="fnr")
+        plt.plot(thresholds, fpr, color="red", linestyle="-", label="fpr")
+        plt.plot(threshold, fpr[index], "ro-")
+        plt.text(threshold, fpr[index],
+                 (round(threshold, 3), round(float(fpr[index]), 5)),
+                 color="red")
+        plt.xlabel("threshold")
+        plt.title("fnr and fpr")
+        plt.grid(True)
+        os.makedirs(save_image_path, exist_ok=True)
+        out = os.path.join(save_image_path, "result.png")
+        plt.savefig(out)
+        plt.close()
+        logger.info(f"result plot saved to: {out}")
+
+    @staticmethod
+    def _score_all(trials, enrolls, trials_labels, enroll_labels):
+        """All-pairs cosine scores (one matmul on the device) and
+        same-speaker labels, flattened trial-major."""
+        t = trials / torch.clamp(torch.linalg.norm(trials, dim=1,
+                                                   keepdim=True), min=1e-12)
+        e = enrolls / torch.clamp(torch.linalg.norm(enrolls, dim=1,
+                                                    keepdim=True), min=1e-12)
+        scores = (t @ e.T).reshape(-1).cpu().numpy().astype(np.float32)
+        match = (trials_labels[:, None]
+                 == enroll_labels[None, :]).reshape(-1).astype(np.int32)
+        return scores, match
+
+    # ------------------------------------------------------------------
+    def extract_features(self, save_dir="dataset/features", max_duration=100):
+        raise _deferred("extract_features")
+
+    def export(self, save_model_path="models/",
+               resume_model="models/CAMPPlus_Fbank/best_model/",
+               export_batch=None, export_seconds=3):
+        raise _deferred("export")
+
+
+# reference-compatible alias (``ppvector.trainer.PPVectorTrainer``)
+PPVectorTrainer = Trainer
