@@ -73,6 +73,25 @@ Phases (any failure raises and the script exits non-zero):
             3 s timed (featurize, model); then the four other feature
             methods and two non-stock Fbank settings on the card against
             the CPU
+10. train   training on the card: a seeded corpus, one b8 x 3 s step held
+            against the CPU, Trainer.train() of the stock CAM++ for an
+            epoch at b64 x 3 s in fp32 and with AMP, evaluate() through the
+            three kernels, best_model served, resume
+11. workflow the single-card workflow at the stock CAM++'s width, every
+            command line reading configs/cam++.yml (its lists replaced)
+            through the port's YAML reader: convert_paddle turns a seeded
+            paddle state into model.pt (equal to the in-process route, its
+            kernel-path embeddings held against the eager model);
+            extract_features writes .npy features (the fbank kernel, held
+            against the plain fbank); Trainer.train() from them at b64 x
+            3 s with enable_remat and mu_dtype bfloat16, then with neither
+            (step ms, peak memory; the loss, the BN statistics after step 1
+            and the bf16 exp_avg held); train(profiler_dir=...) for 21
+            steps from waveforms (a trace naming the fbank kernel);
+            export(export_batch=None, export_seconds=None), model.pt2
+            reloaded and held against the Predictor's kernel path at two
+            batches and two lengths; infer_recognition registers two users
+            and recognises a 12 s clip (the three kernels)
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.
@@ -83,6 +102,7 @@ import math
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -93,63 +113,18 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from voiceprintrecognition_paddlepaddle_torch.utils.config import load_yaml
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
-# configs/cam++.yml, whole (kept as a dict: the GPU host has no PyYAML)
-CONFIG = {
-    "dataset_conf": {
-        "dataset": {"min_duration": 0.3, "max_duration": 3,
-                    "sample_rate": 16000, "use_dB_normalization": True,
-                    "target_dB": -20},
-        "sampler": {"batch_size": 64, "shuffle": True, "drop_last": True},
-        "dataLoader": {"num_workers": 8},
-        "eval_conf": {"batch_size": 8, "max_duration": 20},
-        "train_list": "dataset/train_list.txt",
-        "enroll_list": "dataset/cn-celeb-test/enroll_list.txt",
-        "trials_list": "dataset/cn-celeb-test/trials_list.txt",
-        "is_use_pksampler": False,
-        "sample_per_id": 4,
-    },
-    "preprocess_conf": {"feature_method": "Fbank",
-                        "method_args": {"sr": 16000, "n_mels": 80}},
-    "model_conf": {"model": "CAMPPlus", "model_args": {"embd_dim": 192},
-                   "classifier": {"classifier_type": "Cosine",
-                                  "num_speakers": 2796, "num_blocks": 0}},
-    "loss_conf": {"loss": "AAMLoss",
-                  "loss_args": {"margin": 0.2, "scale": 32,
-                                "easy_margin": False, "label_smoothing": 0.0},
-                  "use_margin_scheduler": True,
-                  "margin_scheduler_args": {"initial_margin": 0.0,
-                                            "final_margin": 0.3}},
-    "optimizer_conf": {"optimizer": "Adam",
-                       "optimizer_args": {"weight_decay": 1.0e-06},
-                       "scheduler": "WarmupCosineSchedulerLR",
-                       "scheduler_args": {"learning_rate": 0.001,
-                                          "min_lr": 1.0e-05,
-                                          "warmup_epoch": 5}},
-    "train_conf": {"enable_amp": False, "max_epoch": 60, "log_interval": 10},
-}
-
-# model_conf of the six other configs/*.yml (kept as dicts, as CONFIG)
-_HEAD = {"classifier_type": "Cosine", "num_speakers": 2796, "num_blocks": 0}
+# the configs, read by the port's YAML reader (the GPU host has no PyYAML)
+CONFIG = load_yaml(os.path.join(ROOT, "configs", "cam++.yml"))
+# model_conf of the six other configs/*.yml
 BACKBONE_CONFS = {
-    "tdnn": {"model": "TDNN", "model_args": {
-        "embd_dim": 192, "channels": 512, "pooling_type": "ASP"},
-        "classifier": _HEAD},
-    "ecapa_tdnn": {"model": "EcapaTdnn", "model_args": {
-        "embd_dim": 192, "pooling_type": "ASP",
-        "channels": [512, 512, 512, 512, 1536]}, "classifier": _HEAD},
-    "res2net": {"model": "Res2Net", "model_args": {
-        "embd_dim": 192, "pooling_type": "ASP", "m_channels": 32},
-        "classifier": _HEAD},
-    "resnet_se": {"model": "ResNetSE", "model_args": {
-        "embd_dim": 192, "pooling_type": "ASP"}, "classifier": _HEAD},
-    "eres2net": {"model": "ERes2Net", "model_args": {
-        "embd_dim": 192, "m_channels": 32}, "classifier": _HEAD},
-    "eres2netv2": {"model": "ERes2NetV2", "model_args": {
-        "embd_dim": 192, "m_channels": 32}, "classifier": _HEAD},
-}
+    name: load_yaml(os.path.join(ROOT, "configs", f"{name}.yml"))["model_conf"]
+    for name in ("tdnn", "ecapa_tdnn", "res2net", "resnet_se", "eres2net",
+                 "eres2netv2")}
 
 FBANK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/fbank.cu"
 TRUNK_SRC = "voiceprintrecognition_paddlepaddle_torch/csrc/campplus_trunk.cu"
@@ -1605,6 +1580,410 @@ def train_phase(dev, card):
     return out
 
 
+# ---- 11. the single-card workflow ------------------------------------------
+PORT = "voiceprintrecognition_paddlepaddle_torch"
+
+
+def synth_pdparams(model, model_args, seed):
+    """A reference paddle ``state_dict`` (numpy, ``0.``-prefixed keys) for
+    the CAM++ ``model`` (``CAMPPlus(80, **model_args)``): every key of the
+    converter's spec, in paddle's layouts, drawn as
+    ``random_flax_variables`` draws its leaves."""
+    from voiceprintrecognition_paddlepaddle_torch.models.convert_paddle \
+        import SPECS
+
+    flax_tree = random_flax_variables(model, seed)     # for the shapes
+    rng = np.random.RandomState(seed + 11)
+    out = {}
+    for pkey, coll, fpath, _, kind in SPECS["CAMPPlus"](80, **model_args):
+        node = flax_tree[coll]
+        for k in fpath.split("/"):
+            node = node[k]
+        f = node.shape
+        shape = {"conv1d_w": lambda: (f[2], f[1], f[0]),
+                 "conv2d_w": lambda: (f[3], f[2], f[0], f[1]),
+                 "conv1d_as_dense_w": lambda: (f[1], f[0], 1)}.get(
+            kind, lambda: f)()
+        if kind.endswith("_w"):
+            fan_in = shape[0] if kind == "dense_w" else np.prod(shape[1:])
+            x = rng.randn(*shape) / np.sqrt(fan_in)
+        elif pkey.endswith("._variance") or fpath.endswith("/scale"):
+            x = rng.uniform(0.5, 1.5, shape)
+        elif pkey.endswith("._mean"):
+            x = rng.normal(0.0, 0.2, shape)
+        else:
+            x = rng.normal(0.0, 0.1, shape)
+        out[f"0.{pkey}"] = x.astype(np.float32)
+    return out
+
+
+def run_cli(module, args, timeout=600):
+    """``python -m <PORT>.<module> args`` in a child process (``runpy``, as
+    ``-m`` runs it), which prints its kernel launch counts as the last
+    line; returns (stdout, launches)."""
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = [{module!r}] + {list(args)!r}\n"
+        f"runpy.run_module('{PORT}.{module}', run_name='__main__')\n"
+        f"from {PORT}.models import fcm_kernel, trunk_kernel\n"
+        f"from {PORT}.ops import fbank_kernel\n"
+        "print(json.dumps({'fbank': fbank_kernel.fbank_fused.launches, "
+        "'fcm': fcm_kernel.fcm_fused.launches, "
+        "'campplus_trunk': trunk_kernel.trunk_stats.launches}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return "\n".join(lines[:-1]), json.loads(lines[-1])
+
+
+def yaml_with_lists(path, lists):
+    """configs/cam++.yml's text with its three list paths replaced (read
+    back by the port's YAML reader); returns the path written."""
+    with open(os.path.join(ROOT, "configs", "cam++.yml"),
+              encoding="utf-8") as f:
+        text = f.read()
+    for key, value in zip(("train_list", "enroll_list", "trials_list"),
+                          lists):
+        old = f"  {key}: {CONFIG['dataset_conf'][key]}\n"
+        if old not in text:
+            raise AssertionError(f"configs/cam++.yml has no line {old!r}")
+        text = text.replace(old, f"  {key}: {value}\n")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(text)
+    return path
+
+
+def held_features(lists, device):
+    """Each ``*_features.txt`` array against the plain fbank on the card
+    (``fbank_fused_reference``) of the same clip, padded to its bucket
+    and trimmed as ``extract_features`` does; returns (max |d|, p99 |d|,
+    arrays)."""
+    from voiceprintrecognition_paddlepaddle_torch.data_utils import \
+        SpeakerDataset
+    from voiceprintrecognition_paddlepaddle_torch.data_utils.collate import \
+        bucket_length
+    from voiceprintrecognition_paddlepaddle_torch.ops import features
+    from voiceprintrecognition_paddlepaddle_torch.ops.fbank_kernel import \
+        fbank_fused_reference
+
+    diffs, n = [], 0
+    args = dict(CONFIG["dataset_conf"]["dataset"], max_duration=100)
+    for src in lists:
+        ds = SpeakerDataset(src, mode="extract_feature", **args)
+        with open(src.replace(".txt", "_features.txt"),
+                  encoding="utf-8") as f:
+            saved = [ln.split("\t") for ln in f.read().splitlines()]
+        if len(saved) != len(ds):
+            raise AssertionError(f"{src}: {len(saved)} features for "
+                                 f"{len(ds)} clips")
+        for i, (path, label) in enumerate(saved):
+            samples, want_label, valid = ds[i]
+            pad = bucket_length(len(samples))
+            x = torch.zeros((1, pad), device=device)
+            x[0, :len(samples)] = torch.from_numpy(samples).to(device)
+            ratio = torch.tensor([len(samples) / pad], device=device)
+            with torch.no_grad():
+                ref = features.apply_cmn_and_mask(
+                    fbank_fused_reference(x, n_mels=80), ratio)[0]
+            got = torch.from_numpy(np.load(path)).to(device)
+            if int(label) != int(want_label) or got.shape[0] > ref.shape[0]:
+                raise AssertionError(f"{path}: label or length is wrong")
+            diffs.append((got - ref[:got.shape[0]]).abs().flatten())
+            n += 1
+    d = torch.cat(diffs)
+    return float(d.max()), float(torch.quantile(d[::7].double(), 0.99)), n
+
+
+def workflow_phase(dev, card):
+    """Phase 11: the single-card workflow at the stock CAM++'s width:
+    convert a paddle checkpoint -> extract features (the fbank kernel) ->
+    train from them with and without remat and the bf16 moment -> the
+    profiler hook -> export and reload -> recognise (the three kernels).
+    Every command line reads configs/cam++.yml's text (its lists
+    replaced) through the port's YAML reader."""
+    import glob
+    import pickle
+
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
+        CAMPPlus
+    from voiceprintrecognition_paddlepaddle_torch.models.convert_paddle \
+        import pdparams_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+    from voiceprintrecognition_paddlepaddle_torch.ops import features, kaldi
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    t0 = time.perf_counter()
+    out = {"card": card, "wall_s": {}, "launches": {}}
+    work = tempfile.mkdtemp(prefix="vpr_workflow_")
+
+    def lap(name, t):
+        out["wall_s"][name] = time.perf_counter() - t
+
+    try:
+        # 64 train speakers x 4 clips of 3 s (b64: 4 steps, no crop), 4
+        # eval speakers x (2 enroll + 2 trials) clips of 3-8 s
+        lists = synth_corpus(work, n_train=64, clips=4, train_s=(3.0, 3.0),
+                             n_eval=4, enroll=2, trials=2, eval_s=(3.0, 8.0),
+                             seed=SEED + 11)
+        yml = yaml_with_lists(os.path.join(work, "cam++.yml"), lists)
+        feat_lists = [p.replace(".txt", "_features.txt") for p in lists]
+        feat_yml = yaml_with_lists(os.path.join(work, "features.yml"),
+                                   feat_lists)
+
+        # -- convert a paddle checkpoint (the command line) ----------------
+        t = time.perf_counter()
+        model_args = dict(CONFIG["model_conf"]["model_args"])
+        model = CAMPPlus(80, **model_args)
+        state = synth_pdparams(model, model_args, SEED)
+        pdparams = os.path.join(work, "model.pdparams")
+        with open(pdparams, "wb") as f:
+            pickle.dump(state, f)
+        converted = os.path.join(work, "converted")
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.convert_paddle",
+             f"--configs={yml}", f"--pdparams={pdparams}",
+             f"--output={converted}"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"convert_paddle failed:\n{proc.stderr[-4000:]}")
+        cli_sd = torch.load(os.path.join(converted, "model.pt"),
+                            weights_only=True)
+        ref_sd = pdparams_to_torch_state(
+            {k[2:]: v for k, v in state.items()}, "CAMPPlus", 80,
+            model_args=model_args)["model"]
+        same = (list(cli_sd) == list(ref_sd)
+                and all(torch.equal(cli_sd[k], ref_sd[k]) for k in ref_sd))
+        model.load_state_dict(ref_sd)
+        model.to(dev).eval().requires_grad_(False)
+        rng = np.random.RandomState(SEED + 11)
+        # seven clips of 1-8 s and one of 12 s (the 16 s bucket: the FCM
+        # kernel)
+        clips = [(rng.randn(int(s_ * 16000)) * 0.1).astype(np.float32)
+                 for s_ in list(rng.uniform(1.0, 8.0, 7)) + [12.0]]
+        reset_launches(fk, fkm, tk)
+        pred = Predictor(yml, model_path=converted, device=dev)
+        embs = torch.from_numpy(pred.predict_batch(clips)).to(dev)
+        out["launches"]["convert_predict"] = read_launches(fk, fkm, tk)
+        with torch.no_grad():
+            cos = min(cos_min(model(features.apply_cmn_and_mask(kaldi.fbank(
+                torch.from_numpy(c).to(dev)[None], n_mels=80))),
+                embs[i:i + 1]) for i, c in enumerate(clips))
+        lap("convert", t)
+        out["convert"] = {"tensors": len(cli_sd), "equal_to_in_process": same,
+                          "kernel_path_cos_vs_eager_min": cos,
+                          "stdout": proc.stdout.strip()}
+        log(f"[workflow] {card}: convert_paddle (a subprocess) wrote "
+            f"{len(cli_sd)} tensors, equal to pdparams_to_torch_state "
+            f"(convert_state + jax_to_torch_state): {same}; Predictor on its "
+            f"model.pt through the kernel path, 7 clips of 1-8 s and one of "
+            f"12 s, against the "
+            f"eager fp32 model of the in-process route at exact length: cos "
+            f"min {cos:.6f} (bar 0.999); launches "
+            f"{out['launches']['convert_predict']}; "
+            f"{out['wall_s']['convert']:.1f} s")
+        if not (same and cos > 0.999
+                and min(out["launches"]["convert_predict"].values()) > 0):
+            raise AssertionError("the converted checkpoint is wrong")
+
+        # -- extract_features (the command line, the fbank kernel) ---------
+        t = time.perf_counter()
+        _, launches = run_cli("extract_features", [
+            f"--configs={yml}", f"--device={dev.type}",
+            f"--save_dir={os.path.join(work, 'features')}"])
+        out["launches"]["extract_features"] = launches
+        d_max, d_p99, n = held_features(lists, dev)
+        lap("extract_features", t)
+        out["extract_features"] = {"arrays": n, "max_abs_err": d_max,
+                                   "p99_abs_err": d_p99}
+        log(f"[workflow] {card}: extract_features (a subprocess, "
+            f"--configs through the port's YAML reader): {n} arrays against "
+            f"the plain fbank on the card: max|d| {d_max:.3e}, p99|d| "
+            f"{d_p99:.3e} (bars 2e-2, 1e-3); launches {launches}; "
+            f"{out['wall_s']['extract_features']:.1f} s")
+        if not (launches["fbank"] == n and d_max < 2e-2 and d_p99 < 1e-3):
+            raise AssertionError("extract_features is wrong")
+
+        # -- train from the features at b64, two ways ----------------------
+        runs = {}
+        for name, extra in (("remat_bf16_moment",
+                             {"train_conf.enable_remat": True,
+                              "optimizer_conf.optimizer_args.mu_dtype":
+                                  "bfloat16"}),
+                            ("plain", {})):
+            t = time.perf_counter()
+            cfg = load_yaml(feat_yml)
+            for key, value in extra.items():
+                node = cfg
+                *path, leaf = key.split(".")
+                for k in path:
+                    node = node[k]
+                node[leaf] = value
+            tr = Trainer(cfg, device=dev)
+            rec = instrument(tr, fk)
+            first = {}
+            step = tr.train_step
+
+            def step_and_snapshot(*a, _step=step, _tr=tr, _first=first,
+                                  **kw):
+                res = _step(*a, **kw)
+                if not _first:
+                    _first.update({k: v.detach().clone() for k, v in
+                                   _tr.model.state_dict().items()
+                                   if "running" in k})
+                return res
+
+            tr.train_step = step_and_snapshot
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr.train(save_model_path="", log_dir="", do_eval=False,
+                     max_epochs=1)
+            torch.cuda.synchronize()
+            steps = [s_.elapsed_time(e) for s_, e in rec["step"]]
+            moments = {str(tr.optimizer.state[p]["exp_avg"].dtype)
+                       for p in tr.optimizer.param_groups[0]["params"]}
+            runs[name] = {
+                "steps": len(steps), "step_ms": steps,
+                "steady_step_ms": sum(steps[1:]) / max(len(steps) - 1, 1),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss": [float(x) for x in rec["loss"]],
+                "fbank_launches": sum(rec["fbank"]),
+                "exp_avg_dtypes": sorted(moments),
+                "optimizer": type(tr.optimizer).__name__,
+                "first_step_stats": first, "wall_s": time.perf_counter() - t}
+        r, p = runs["remat_bf16_moment"], runs["plain"]
+        bn_rel = max(float((r["first_step_stats"][k] - v).abs().max()
+                           / v.abs().max().clamp_min(1e-30))
+                     for k, v in p["first_step_stats"].items())
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(r["loss"], p["loss"])]
+        for run in runs.values():
+            del run["first_step_stats"]
+        out["train"] = {**runs, "bn_stats_rel_after_step_1": bn_rel,
+                        "loss_rel": loss_rel}
+        for name, run in runs.items():
+            log(f"[workflow] {card}: {name}: Trainer.train() from the "
+                f"features at b64 x 3 s, {run['steps']} steps "
+                f"({run['optimizer']}, exp_avg {run['exp_avg_dtypes']}): step "
+                f"ms {[round(x, 2) for x in run['step_ms']]}, steady "
+                f"{run['steady_step_ms']:.2f} ms (CUDA events, steps 2-); "
+                f"peak max_memory_allocated {run['peak_gb']:.3f} GB; loss "
+                f"{[round(x, 5) for x in run['loss']]}; fbank launches "
+                f"{run['fbank_launches']}; {run['wall_s']:.1f} s")
+        log(f"[workflow] remat + bf16 moment against neither: loss rel "
+            f"{[f'{x:.2e}' for x in loss_rel]} (bars: steps 1-2 1e-5, as "
+            f"update 0 runs at lr 0; steps 3-4 1e-2, the bf16 moment's "
+            f"rounding), BN running statistics "
+            f"after step 1 rel {bn_rel:.2e} (bar 1e-6)")
+        if not (r["steps"] == p["steps"] >= 4 and max(loss_rel[:2]) <= 1e-5
+                and max(loss_rel[2:4]) <= 1e-2 and bn_rel <= 1e-6
+                and r["exp_avg_dtypes"] == ["torch.bfloat16"]
+                and r["fbank_launches"] == p["fbank_launches"] == 0):
+            raise AssertionError("remat or the bf16 moment changed training")
+
+        # -- the profiler hook, from waveforms, 21 steps -------------------
+        t = time.perf_counter()
+        cfg = load_yaml(yml)
+        cfg["dataset_conf"]["sampler"]["batch_size"] = 12    # 21 steps
+        prof_dir = os.path.join(work, "profile")
+        tr = Trainer(cfg, device=dev)
+        reset_launches(fk, fkm, tk)
+        tr.train(save_model_path="", log_dir="", do_eval=False, max_epochs=1,
+                 profiler_dir=prof_dir)
+        out["launches"]["profiled_train"] = read_launches(fk, fkm, tk)
+        traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+        names_fbank = False
+        size = 0
+        for path in traces:
+            size += os.path.getsize(path)
+            with open(path, encoding="utf-8") as f:
+                names_fbank |= "fbank_kernel" in f.read()
+        lap("profiler", t)
+        out["profiler"] = {"steps": tr.step, "traces": len(traces),
+                           "trace_mb": size / 1e6,
+                           "names_fbank_kernel": names_fbank}
+        log(f"[workflow] {card}: train(profiler_dir=...) from waveforms, "
+            f"b12 x 3 s, {tr.step} steps: {len(traces)} trace(s) of steps "
+            f"10-19, {size / 1e6:.1f} MB, names fbank_kernel: {names_fbank}; "
+            f"launches {out['launches']['profiled_train']}; "
+            f"{out['wall_s']['profiler']:.1f} s")
+        if not (tr.step >= 21 and len(traces) == 1 and names_fbank
+                and out["launches"]["profiled_train"]["fbank"] == tr.step):
+            raise AssertionError("the profiler hook wrote no trace of the "
+                                 "fbank kernel")
+
+        # -- export with a symbolic batch and length, reload, run ----------
+        t = time.perf_counter()
+        tr = Trainer(load_yaml(yml), device=dev)
+        infer = tr.export(save_model_path=os.path.join(work, "export"),
+                          resume_model=converted, export_batch=None,
+                          export_seconds=None)
+        lap("export", t)
+        t = time.perf_counter()
+        program = torch.export.load(os.path.join(infer, "model.pt2")).module()
+        lap("export_load", t)
+        reset_launches(fk, fkm, tk)
+        pred = Predictor(yml, model_path=infer, device=dev)
+        held = {}
+        for f_ in (298, 498):
+            w = (rng.randn(3, 160 * f_ + 240) * 0.1).astype(np.float32)
+            want = torch.from_numpy(pred.predict_batch(list(w))).to(dev)
+            for b in (1, 3):
+                with torch.no_grad():
+                    got = program(torch.from_numpy(w[:b]).to(dev))
+                held[f"b{b} x {f_} frames"] = cos_min(got, want[:b])
+        out["launches"]["export_predict"] = read_launches(fk, fkm, tk)
+        out["export"] = {"files": sorted(os.listdir(infer)), "cos": held}
+        log(f"[workflow] {card}: export(export_batch=None, export_seconds="
+            f"None) {out['wall_s']['export']:.1f} s (torch.export on the "
+            f"card, the plain fbank), torch.export.load "
+            f"{out['wall_s']['export_load']:.1f} s; model.pt2 against the "
+            f"Predictor's kernel path on the exported model.pt: cos {held} "
+            f"(bar 0.999); launches {out['launches']['export_predict']}")
+        if not min(held.values()) > 0.999:
+            raise AssertionError("the exported program disagrees with the "
+                                 "kernel path")
+
+        # -- infer_recognition: two users, then a third clip (16 s bucket) -
+        t = time.perf_counter()
+        third = os.path.join(work, "third.wav")
+        write_wav(third, (np.sin(2 * np.pi * 140 * np.arange(192000) / 16000)
+                          * 0.3 + 0.02 * rng.randn(192000)))
+        db = os.path.join(work, "db")
+        wav = lambda n: os.path.join(ROOT, "dataset", f"{n}.wav")  # noqa: E731
+        text, launches = run_cli("infer_recognition", [
+            f"--configs={yml}", f"--device={dev.type}",
+            f"--model_path={converted}",
+            f"--audio_db_path={db}", "--threshold=-1.0",
+            f"--register=alice={wav('a_1')}", f"--register=bob={wav('b_1')}",
+            f"--recognize={third}"])
+        out["launches"]["infer_recognition"] = launches
+        lap("infer_recognition", t)
+        rec_line = [ln for ln in text.splitlines()
+                    if ln.startswith(("register ", "recognised", "no match",
+                                      "registered users"))]
+        out["infer_recognition"] = rec_line
+        log(f"[workflow] {card}: infer_recognition (a subprocess): "
+            f"{rec_line}; launches {launches}; "
+            f"{out['wall_s']['infer_recognition']:.1f} s")
+        if not (any(ln.startswith("recognised speaker: ") for ln in rec_line)
+                and "registered users: ['alice', 'bob']" in rec_line
+                and min(launches.values()) > 0):
+            raise AssertionError("infer_recognition is wrong")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"]["phase"] = time.perf_counter() - t0
+    log(f"[workflow] {card}: phase 11 wall {out['wall_s']['phase']:.1f} s: "
+        f"{ {k: round(v, 1) for k, v in out['wall_s'].items()} }")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -1872,7 +2251,15 @@ def main():
     # ---- 10. training: the train step, evaluate, checkpoints -------------
     training = train_phase(dev, card)
     print(json.dumps({"training": training}), flush=True)
+
+    # ---- 11. the single-card workflow: convert, extract, train, export ---
+    workflow = workflow_phase(dev, card)
+    print(json.dumps({"workflow": workflow}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+
+    def phase11_launches(kernel):
+        return {path: n[kernel] for path, n in workflow["launches"].items()}
+
     train_launches = {"fbank_per_step": 1,
                       "eval": training["eval"]["launches"],
                       "train_path": training["fp32"]["launches_train_path"]}
@@ -1890,6 +2277,7 @@ def main():
         "launches_train_step": train_launches["fbank_per_step"],
         "launches_train_path": train_launches["train_path"]["fbank"],
         "launches_eval": train_launches["eval"]["fbank"],
+        "launches_phase11": phase11_launches("fbank"),
         "ms": ms(fb3["ms"]), "plain_ms": ms(fb3["plain_ms"]), **fb_bound,
         "library_ms": None, "cufft_ms": ms(fb3["cufft_ms"]),
         "graph_ms": ms(fb3["graph_ms"]), "shape": "b256 x 3 s"}
@@ -1919,6 +2307,7 @@ def main():
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,
          "launches_eval": train_launches["eval"]["fcm"],
+         "launches_phase11": phase11_launches("fcm"),
          "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
          **fcm_bounds["b32 x 16 s"], "library_ms": None,
          "cudnn_ms": ms(f16["cudnn_ms"]),
@@ -1938,6 +2327,7 @@ def main():
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
          "launches_eval": train_launches["eval"]["campplus_trunk"],
+         "launches_phase11": phase11_launches("campplus_trunk"),
          "ms": ms(tr_kern), "plain_ms": ms(tr_plain), **tr_bound,
          "library_ms": None, "shape": "b256 x 3 s",
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),

@@ -39,7 +39,10 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "eval", "metric", "metric.metrics", "data_utils",
            "data_utils.collate", "data_utils.reader", "data_utils.loader",
            "data_utils.pk_sampler", "ops.augment", "loss", "loss.losses",
-           "optimizer", "optimizer.scheduler", "utils.checkpoint"]
+           "optimizer", "optimizer.scheduler", "utils.checkpoint",
+           "utils.config", "optimizer.adam", "models.convert_paddle",
+           "convert_paddle", "create_data", "extract_features",
+           "infer_recognition", "utils.record", "data_utils.featurizer"]
 
 
 def test_importing_the_port_leaves_jax_out():

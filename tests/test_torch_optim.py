@@ -147,9 +147,20 @@ def test_accumulation_matches_optax_multisteps(name):
 
 
 def test_mu_dtype_raises_and_unknown_optimizer_is_refused():
-    cfg = _configs()
-    cfg.optimizer_conf.optimizer_args["mu_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
+    """``mu_dtype`` builds the bf16-moment Adam (held against optax in
+    ``tests/test_torch_adam_moment.py``) for Adam and AdamW, is ignored by
+    the others as in JAX, and a name that is no float dtype raises; an
+    unknown optimizer is refused."""
+    for name, want in (("Adam", topt.AdamLowPrecisionMoment),
+                       ("AdamW", topt.AdamLowPrecisionMoment),
+                       ("SGD", torch.optim.SGD)):
+        cfg = _configs(optimizer=name)
+        cfg.optimizer_conf.optimizer_args["mu_dtype"] = "bfloat16"
+        opt = topt.build_optimizer([torch.zeros(2, requires_grad=True)], cfg)
+        assert type(opt) is want
+    cfg.optimizer_conf.optimizer = "Adam"
+    cfg.optimizer_conf.optimizer_args["mu_dtype"] = "bf16"
+    with pytest.raises(ValueError, match="mu_dtype"):
         topt.build_optimizer([torch.zeros(2, requires_grad=True)], cfg)
     with pytest.raises(ValueError, match="unknown optimizer"):
         topt.build_optimizer([torch.zeros(2, requires_grad=True)],

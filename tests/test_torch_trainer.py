@@ -3,9 +3,10 @@
 with augmentation, the checkpoint layout and ``model.state`` keys of the
 JAX ``save_checkpoint``, resume (the step and the epoch go on),
 ``Predictor(device="cpu")`` serving ``best_model`` with the trainer's
-eval embeddings, the ``train`` / ``eval`` command lines, the deferred
-options (each raises ``NotImplementedError``), and one train step of each
-of the 7 backbones (a finite loss, BN statistics that move)."""
+eval embeddings, the ``train`` / ``eval`` command lines, the options
+still deferred (each raises ``NotImplementedError``) and the ones that
+now run, and one train step of each of the 7 backbones (a finite loss, BN
+statistics that move)."""
 
 import json
 import os
@@ -18,6 +19,8 @@ import torch
 import yaml
 
 from test_torch_helpers import NARROW, cos_min, speaker_corpus, train_configs
+from voiceprintrecognition_paddlepaddle_torch.optimizer import \
+    AdamLowPrecisionMoment
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
 from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
 
@@ -168,25 +171,62 @@ def test_train_and_eval_command_lines(lists, tmp_path):
     ("train_conf.checkpoint_format", "orbax"),
     ("optimizer_conf.optimizer_args.mu_dtype", "bfloat16")])
 def test_deferred_options_raise(lists, where, value):
+    """Data parallelism (``num_devices`` > 1, ``checkpoint_format: orbax``)
+    still raises; the Trainer builds with ``enable_remat`` and
+    ``mu_dtype`` (held against JAX in ``tests/test_torch_remat.py`` and
+    ``tests/test_torch_adam_moment.py``)."""
     cfg = _cfg(lists, "TDNN")
     node = cfg
     *path, leaf = where.split(".")
     for k in path:
         node = node[k]
     node[leaf] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Trainer(cfg, device="cpu")
+    if where.startswith(("train_conf.num_devices",
+                         "train_conf.checkpoint_format")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            Trainer(cfg, device="cpu")
+        return
+    tr = Trainer(cfg, device="cpu")
+    tr._setup_dataloader(is_train=True)
+    tr._setup_model(tr.audio_featurizer.feature_dim, is_train=True)
+    if leaf == "enable_remat":
+        assert tr.remat
+    else:
+        assert isinstance(tr.optimizer, AdamLowPrecisionMoment)
 
 
 @pytest.mark.parametrize("call", ["extract_features", "export", "profiler"])
 def test_deferred_calls_raise(lists, tmp_path, call):
-    tr = Trainer(_cfg(lists, "TDNN"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if call == "profiler":
-            tr.train(save_model_path="", log_dir="",
-                     profiler_dir=str(tmp_path))
-        else:
-            getattr(tr, call)()
+    """Each call runs: ``extract_features`` writes the feature lists,
+    ``export`` the inference bundle, ``train(profiler_dir=...)`` a trace
+    (each held against JAX in ``tests/test_torch_{export,remat}.py``)."""
+    tr = Trainer(_cfg(lists, "TDNN", max_epoch=1), device="cpu")
+    if call == "profiler":
+        tr.train(save_model_path="", log_dir="", profiler_dir=str(tmp_path))
+        assert tr.step == 3     # fewer steps than the trace's start: none
+        assert os.listdir(tmp_path) == []
+    elif call == "export":
+        infer = tr.export(save_model_path=str(tmp_path), resume_model=None,
+                          export_seconds=1)
+        assert sorted(os.listdir(infer)) == ["inference.json", "model.pt",
+                                             "model.pt2"]
+    else:
+        cfg = _cfg(lists, "TDNN")
+        for key in ("train_list", "enroll_list", "trials_list"):
+            src = cfg["dataset_conf"][key]
+            dst = tmp_path / os.path.basename(src)
+            dst.write_text(open(src, encoding="utf-8").read(),
+                           encoding="utf-8")
+            cfg["dataset_conf"][key] = str(dst)
+        Trainer(cfg, device="cpu").extract_features(
+            save_dir=str(tmp_path / "features"), max_duration=2)
+        for key in ("train_list", "enroll_list", "trials_list"):
+            feats = cfg["dataset_conf"][key].replace(".txt", "_features.txt")
+            lines = open(feats, encoding="utf-8").read().splitlines()
+            assert len(lines) == len(open(cfg["dataset_conf"][key])
+                                     .read().splitlines())
+            assert all(np.load(ln.split("\t")[0]).shape[1] == 40
+                       for ln in lines)
 
 
 def test_cuda_trainer_needs_a_card(lists):

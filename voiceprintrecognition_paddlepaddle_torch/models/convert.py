@@ -23,10 +23,11 @@ step. Each moment takes its parameter's transform: every transform is a
 permutation, so the moments map exactly. A JAX run can then go on in the
 port.
 
-A paddle ``.pdparams`` file loads through the JAX package's pure-numpy
-``tools/convert_paddle_checkpoint.convert_state`` followed by this
-function (take ``["params"]["backbone"]`` / ``["batch_stats"]["backbone"]``
-of its result). Write the result with ``torch.save`` for ``Predictor``.
+A paddle ``.pdparams`` file loads through ``convert_paddle``
+(``load_pdparams``, then ``pdparams_to_torch_state``: the port's copy of
+the JAX package's numpy converter followed by this function); ``python -m
+voiceprintrecognition_paddlepaddle_torch.convert_paddle`` writes the
+``model.pt`` that ``Predictor`` loads.
 """
 
 from collections.abc import Mapping

@@ -8,15 +8,34 @@ run NCHW ``(B, C, F, T)``. Attribute names follow the flax parameter tree
 ``nn.BatchNorm(momentum=0.9)`` update of the running statistics.
 """
 
+import threading
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BN_EPS", "BatchNorm", "bn_affine", "length_to_mask",
+__all__ = ["BN_EPS", "BatchNorm", "frozen_running_stats", "bn_affine",
+           "length_to_mask",
            "hardtanh_relu20", "SamePadConv1d", "BatchNorm1d", "BN2d",
            "TDNNBlock", "NonLinear", "DenseBN", "avg_pool_exclusive"]
 
 BN_EPS = 1e-5
+_frozen = threading.local()
+
+
+@contextmanager
+def frozen_running_stats():
+    """In this thread, train-mode ``BatchNorm`` normalizes by the batch
+    statistics and leaves its running ones (and its batch count) alone:
+    the recomputed forward of ``torch.utils.checkpoint`` must not move
+    them a second time."""
+    depth = getattr(_frozen, "depth", 0)
+    _frozen.depth = depth + 1
+    try:
+        yield
+    finally:
+        _frozen.depth = depth
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -43,6 +62,12 @@ class BatchNorm(nn.BatchNorm1d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if getattr(_frozen, "depth", 0):
+            # the same op on copies of the statistics: the recomputation
+            # saves what the forward saved, and the update is thrown away
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, 0.0, self.eps)
         self.num_batches_tracked.add_(1)
         factor = (self.momentum if self.momentum is not None
                   else 1.0 / float(self.num_batches_tracked))

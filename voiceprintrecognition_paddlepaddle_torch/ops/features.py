@@ -129,7 +129,10 @@ def _stft_power(waveforms, n_fft, hop_length, win_length, window, center,
         hop_length = win_length // 4
     if center:
         pad = n_fft // 2
-        if pad_mode == "reflect":
+        if pad_mode == "reflect" and x.shape[-1] > pad:
+            # F.pad's reflection (torch.export traces it at a symbolic length)
+            x = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+        elif pad_mode == "reflect":
             idx = _reflect_index(x.shape[-1], pad)
             x = x[..., kaldi._table(idx, x.device)]
         elif pad_mode == "constant":

@@ -16,18 +16,21 @@ package's (optax's) semantics:
 - The LR is not the optimizer's: ``set_lr`` writes ``schedule(k)`` into
   every param group before update ``k``.
 
-``optimizer_args.mu_dtype`` (the JAX package's bf16 Adam first moment)
-has no ``torch.optim`` counterpart and raises ``NotImplementedError``.
+``optimizer_args.mu_dtype`` (the JAX package's bf16 Adam first moment,
+Adam and AdamW only) selects ``adam.AdamLowPrecisionMoment``: ``exp_avg``
+in that dtype, ``exp_avg_sq`` and the update in the parameters'.
 """
 
 import torch
 
 from ..utils.logger import logger
+from .adam import AdamLowPrecisionMoment
 from .scheduler import (CosineAnnealingDecay, MarginScheduler,
                         WarmupCosineSchedulerLR, cosine_decay_with_warmup)
 
 __all__ = ["build_optimizer", "build_lr_scheduler", "set_lr", "scheduled_step",
-           "MarginScheduler", "WarmupCosineSchedulerLR",
+           "AdamLowPrecisionMoment", "MarginScheduler",
+           "WarmupCosineSchedulerLR",
            "CosineAnnealingDecay", "cosine_decay_with_warmup"]
 
 SCHEDULERS = {
@@ -84,13 +87,19 @@ def build_optimizer(params, configs, fused=None):
     b2 = float(args.pop("beta2", 0.999))
     eps = float(args.pop("epsilon", 1e-8))
     momentum = float(args.pop("momentum", 0.9))
-    if args.pop("mu_dtype", None) is not None:
-        raise NotImplementedError(
-            "optimizer_args.mu_dtype (a bf16 Adam first moment) has no "
-            "torch.optim counterpart in the port yet (ROADMAP.md, queue 1: "
-            "training, deferred: mu_dtype)")
+    mu_dtype = args.pop("mu_dtype", None)
     kw = {} if fused is None else {"fused": fused}  # Adam and AdamW
-    if use_optimizer == "Adam":
+    if mu_dtype is not None and use_optimizer in ("Adam", "AdamW"):
+        # JAX passes it to optax.scale_by_adam, so the others ignore it
+        dtype = getattr(torch, str(mu_dtype), None)
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"optimizer_args.mu_dtype: not a float dtype: "
+                             f"{mu_dtype!r}")
+        opt = AdamLowPrecisionMoment(
+            params, lr=0.0, betas=(b1, b2), eps=eps,
+            weight_decay=weight_decay, decoupled=use_optimizer == "AdamW",
+            mu_dtype=dtype)
+    elif use_optimizer == "Adam":
         opt = torch.optim.Adam(params, lr=0.0, betas=(b1, b2), eps=eps,
                                weight_decay=weight_decay, **kw)
     elif use_optimizer == "AdamMax":
@@ -113,5 +122,6 @@ def build_optimizer(params, configs, fused=None):
         logger.warning(f"unrecognised optimizer_args ignored: "
                        f"{sorted(args)}")
     logger.info(f"created optimizer: {use_optimizer}, "
-                f"weight_decay: {weight_decay}")
+                f"weight_decay: {weight_decay}"
+                + (f", mu_dtype: {mu_dtype}" if mu_dtype is not None else ""))
     return opt

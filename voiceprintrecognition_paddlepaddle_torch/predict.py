@@ -52,6 +52,7 @@ from .models.campplus import CAMPPlus
 from .models.trunk_kernel import make_campplus_masked_embed_fn
 from .ops.audio import AudioSegment
 from .ops.features import AudioFeaturizer
+from .utils.config import load_yaml
 from .utils.logger import logger
 from .utils.utils import dict_to_object
 
@@ -76,10 +77,10 @@ def campplus_kernel_path_applies(model, featurizer):
 
 
 def _load_configs(configs):
+    """A config dict, or a YAML path read by ``utils.config`` (no PyYAML,
+    one reader on every host)."""
     if isinstance(configs, str):
-        import yaml  # only for a path: the GPU host does not list PyYAML
-        with open(configs, "r", encoding="utf-8") as f:
-            configs = yaml.safe_load(f.read())
+        configs = load_yaml(configs)
     return dict_to_object(configs)
 
 

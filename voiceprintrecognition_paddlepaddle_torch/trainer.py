@@ -34,28 +34,45 @@ anew on every call; other buckets and configs run the plain model. Unlike
 the JAX trainer (``trainer.py:804-815``), a kernel that fails raises: the
 evaluation never falls back.
 
-Deferred (``NotImplementedError`` naming the ROADMAP item): ``extract_features``,
-``export``, ``train_conf.enable_remat``, ``optimizer_args.mu_dtype``,
-``train(profiler_dir=...)``, more than one device
-(``train_conf.num_devices``) and ``train_conf.checkpoint_format: orbax``.
+``train_conf.enable_remat`` runs the backbone's forward under
+``torch.utils.checkpoint`` (JAX ``jax.checkpoint``, ``trainer.py:366-379``);
+the recomputation in the backward leaves the BatchNorm running statistics
+alone (``layers.frozen_running_stats``), so a step moves them once, as the
+functional flax step does. ``optimizer_args.mu_dtype`` keeps Adam's first
+moment in that dtype (``optimizer/adam.py``). ``train(profiler_dir=...)``
+traces steps 10-19 with ``torch.profiler``. ``extract_features`` writes
+per-utterance ``.npy`` features; ``export`` writes the inference bundle,
+with ``model.pt2`` from ``torch.export`` of the plain wav -> embedding
+forward.
+
+Deferred (``NotImplementedError`` naming the ROADMAP item): more than one
+device (``train_conf.num_devices``) and ``train_conf.checkpoint_format:
+orbax``.
 """
 
+import json
 import os
 import time
+from contextlib import nullcontext
 from datetime import timedelta
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .data_utils import (BatchSampler, DataLoader, PKSampler, SpeakerDataset,
                          collate_features, collate_waveforms)
+from .data_utils.collate import bucket_length
 from .loss import build_loss
 from .metric.metrics import compute_dcf, compute_eer, compute_fnr_fpr
 from .models import build_model
+from .models.campplus import SEG_LEN, CAMPPlus
 from .models.fc import SpeakerIdentification
+from .models.layers import frozen_running_stats
 from .models.trunk_kernel import make_campplus_masked_embed_fn
+from .ops import kaldi
 from .ops.augment import DeviceAugmenter
-from .ops.features import AudioFeaturizer
+from .ops.features import AudioFeaturizer, apply_cmn_and_mask
 from .optimizer import (MarginScheduler, build_lr_scheduler, build_optimizer,
                         scheduled_step)
 from .predict import (MAX_KERNEL_BUCKET_SAMPLES, _load_configs,
@@ -67,22 +84,25 @@ from .utils.utils import dict_to_object, print_arguments
 
 __all__ = ["Trainer", "PPVectorTrainer"]
 
-# ROADMAP.md, queue 1, "training: deferred": one entry per option
+# ROADMAP.md, queue 1: one entry per option still to port
 _DEFERRED = {
-    "extract_features": "extract_features",
-    "export": "export",
-    "enable_remat": "remat",
-    "mu_dtype": "mu_dtype",
-    "profiler_dir": "the profiler hook",
     "num_devices": "data parallelism (DDP)",
     "checkpoint_format": "data parallelism (DDP), with sharded checkpoints",
 }
+# the steps train(profiler_dir=...) traces: [start, stop)
+PROFILE_STEPS = (10, 20)
 
 
 def _deferred(what):
     return NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP.md, queue 1, "
-        f"training, deferred: {_DEFERRED[what]})")
+        f"{what} is not in the PyTorch port yet (ROADMAP.md, queue 1: "
+        f"{_DEFERRED[what]})")
+
+
+def _rank():
+    dist = torch.distributed
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
 
 
 class Trainer:
@@ -104,17 +124,14 @@ class Trainer:
                                 title="augmentation configs")
         self.data_augment_configs = dict_to_object(data_augment_configs or {})
         train_conf = self.configs.get("train_conf", {})
-        if train_conf.get("enable_remat", False):
-            raise _deferred("enable_remat")
         if int(train_conf.get("num_devices", 0) or 0) > 1:
             raise _deferred("num_devices")
         if train_conf.get("checkpoint_format", "torch") not in ("torch",
                                                                 "msgpack"):
             raise _deferred("checkpoint_format")
-        if (self.configs.get("optimizer_conf", {}).get("optimizer_args", {})
-                .get("mu_dtype") is not None):
-            raise _deferred("mu_dtype")
         self.amp = bool(train_conf.get("enable_amp", False))
+        self.remat = bool(train_conf.get("enable_remat", False))
+        self._profiler = self._profiler_dir = None
 
         self.audio_featurizer = None
         self.train_dataset = self.train_loader = None
@@ -337,7 +354,15 @@ class Trainer:
         feats = self.featurize(kind, data, lens)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.amp):
-            emb = self.model(feats, lengths=lens)
+            if self.remat:
+                # activations recomputed in the backward; the recomputation
+                # leaves the BN running statistics as the forward left them
+                emb = checkpoint(
+                    lambda f, r: self.model(f, lengths=r), feats, lens,
+                    use_reentrant=False,
+                    context_fn=lambda: (nullcontext(), frozen_running_stats()))
+            else:
+                emb = self.model(feats, lengths=lens)
             outputs = self.classifier(emb)
             loss = self.criterion(outputs, labels, margin=self._margin())
         (loss / self.accum_steps if self.accum_steps > 1 else loss).backward()
@@ -364,8 +389,11 @@ class Trainer:
     def train(self, save_model_path="models/", log_dir="log/",
               resume_model=None, pretrained_model=None, do_eval=True,
               max_epochs=None, profiler_dir=None):
-        if profiler_dir is not None:
-            raise _deferred("profiler_dir")
+        """``profiler_dir``: when set, rank 0 traces train steps 10-19
+        (``PROFILE_STEPS``) with ``torch.profiler``, CUDA activity included
+        on the card, and writes the trace there (a ``*.pt.trace.json`` that
+        TensorBoard and Perfetto open), as JAX ``trainer.py:700-708``."""
+        self._profiler_dir = profiler_dir if _rank() == 0 else None
         self.train_window_speeds = []
         writer = None
         if log_dir:
@@ -405,6 +433,7 @@ class Trainer:
             self._train_epochs(last_epoch, max_epoch, writer,
                                save_model_path, do_eval, best_eer)
         finally:
+            self._stop_profiler()
             if self._async_saver is not None:
                 self._async_saver.close()
                 self._async_saver = None
@@ -475,6 +504,7 @@ class Trainer:
                 self.margin_scheduler.step(current_step=self.step)
             data, labels, lens = (self._to_device(x)
                                   for x in (data, labels, lens))
+            self._profile_hook()
             loss, acc = self.train_step(kind, data, labels, lens)
             if batch_id % log_interval == 0:
                 self.train_loss, self.train_acc = float(loss), float(acc)
@@ -510,6 +540,31 @@ class Trainer:
                 # resume replays this epoch from these weights
                 self._save(save_model_path, epoch_id,
                            completed_epoch=epoch_id - 1)
+
+    def _profile_hook(self):
+        """Before a step: start the trace at step 10, stop it at 20."""
+        if not self._profiler_dir:
+            return
+        if self.step == PROFILE_STEPS[0] and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    self._profiler_dir))
+            self._profiler.start()
+        elif self.step == PROFILE_STEPS[1]:
+            self._stop_profiler()
+
+    def _stop_profiler(self):
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        self._profiler = None
+        logger.info(f"profiler trace saved: {self._profiler_dir}")
 
     # ------------------------------------------------------------------
     def _eval_embed_fn(self):
@@ -631,12 +686,162 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def extract_features(self, save_dir="dataset/features", max_duration=100):
-        raise _deferred("extract_features")
+        """Write per-utterance ``.npy`` features and a ``*_features.txt``
+        list beside each list that exists (JAX ``trainer.py:913-949``):
+        each clip padded to its bucket, featurized with its length ratio on
+        the trainer's device (the fbank kernel on the card for the stock
+        Fbank) and trimmed to its valid frames."""
+        self.audio_featurizer = AudioFeaturizer(
+            feature_method=self.configs.preprocess_conf.feature_method,
+            method_args=self.configs.preprocess_conf.get("method_args", {}))
+        for data_list in [self.configs.dataset_conf.train_list,
+                          self.configs.dataset_conf.enroll_list,
+                          self.configs.dataset_conf.trials_list]:
+            if not data_list or not os.path.exists(data_list):
+                continue
+            dataset_args = dict(self.configs.dataset_conf.get("dataset", {}))
+            dataset_args["max_duration"] = max_duration
+            ds = SpeakerDataset(data_list_path=data_list,
+                                mode="extract_feature", **dataset_args)
+            save_list = data_list.replace(".txt", "_features.txt")
+            with open(save_list, "w", encoding="utf-8") as f:
+                for counter in range(len(ds)):
+                    samples, label, valid = ds[counter]
+                    n_frames = self.audio_featurizer.num_frames(valid)
+                    pad_len = bucket_length(len(samples))
+                    padded = torch.zeros((1, pad_len), dtype=torch.float32)
+                    padded[0, :len(samples)] = torch.from_numpy(samples)
+                    ratio = torch.tensor([len(samples) / pad_len],
+                                         dtype=torch.float32)
+                    with torch.no_grad():
+                        feat = self.audio_featurizer(
+                            padded.to(self.device),
+                            ratio.to(self.device))[0, :n_frames]
+                    save_path = os.path.join(
+                        save_dir, str(label),
+                        f"{int(time.time() * 1000)}_{counter}.npy")
+                    os.makedirs(os.path.dirname(save_path), exist_ok=True)
+                    np.save(save_path, feat.cpu().numpy())
+                    f.write(f"{save_path}\t{label}\n")
+            logger.info(f"features extracted for {data_list} -> {save_list}")
+
+    def _export_featurize(self):
+        """The plain front end for the exported program: the Fbank as
+        ``kaldi.fbank`` (a CUDA extension cannot go into a portable
+        program, as JAX keeps Pallas out of its StableHLO export)."""
+        pre = self.configs.preprocess_conf
+        if pre.feature_method != "Fbank":
+            return self.audio_featurizer
+        args = dict(pre.get("method_args", {}))
+        args.setdefault("sr", 16000)
+
+        def featurize(waves):
+            return apply_cmn_and_mask(kaldi.fbank(waves, **args))
+        return featurize
+
+    def _export_min_frames(self):
+        """The shortest symbolic length, in frames, ``export`` takes: 10,
+        as JAX; 201 for CAM++, whose context pooling over segments of
+        ``SEG_LEN`` frames (after its stride-2 stem) makes ``torch.export``
+        assume more than one segment, a guard it cannot prove for one."""
+        if isinstance(self.model, CAMPPlus):
+            return 2 * SEG_LEN + 1
+        return 10
 
     def export(self, save_model_path="models/",
                resume_model="models/CAMPPlus_Fbank/best_model/",
                export_batch=None, export_seconds=3):
-        raise _deferred("export")
+        """Save the backbone-only inference bundle (JAX
+        ``trainer.py:951-1049``) in
+        ``<save_model_path>/<model>_<feature_method>/infer/``:
+
+        - ``model.pt``: the backbone ``state_dict``
+          (``Predictor(model_path=...)`` loads it);
+        - ``inference.json``: the JAX bundle's keys;
+        - ``model.pt2``: ``torch.export`` of the wav -> features ->
+          embedding forward in eval mode on the trainer's device, over the
+          plain front end (``torch.export.load(path).module()`` runs it).
+
+        ``export_batch=None`` makes the batch symbolic. ``export_seconds=
+        None`` makes the length symbolic too: ``shift*f + (len - shift)``
+        samples for Fbank (``160*f + 240`` at 16 kHz: exactly ``f`` kaldi
+        frames), ``hop*f`` for the centred-STFT methods (the featurizer's
+        hop), with ``f >= 10``
+        as in JAX but ``f >= 201`` (2.0 s) for CAM++
+        (``_export_min_frames``).
+        ``resume_model=None`` exports the weights the trainer holds.
+        Unlike JAX, which logs "StableHLO export skipped", a failing
+        export raises."""
+        self.audio_featurizer = AudioFeaturizer(
+            feature_method=self.configs.preprocess_conf.feature_method,
+            method_args=self.configs.preprocess_conf.get("method_args", {}))
+        if self.model is None:
+            self._setup_model(self.audio_featurizer.feature_dim)
+        if resume_model is not None:
+            load_pretrained({"model": self.model}, resume_model)
+        infer_dir = os.path.join(
+            save_model_path,
+            f"{self.configs.model_conf.model}_"
+            f"{self.configs.preprocess_conf.feature_method}", "infer")
+        os.makedirs(infer_dir, exist_ok=True)
+        torch.save({k: v.detach().cpu() for k, v in
+                    self.model.state_dict().items()},
+                   os.path.join(infer_dir, "model.pt"))
+        with open(os.path.join(infer_dir, "inference.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"model": self.configs.model_conf.model,
+                       "feature_method":
+                           self.configs.preprocess_conf.feature_method,
+                       "export_batch": export_batch,
+                       "export_seconds": export_seconds}, f, indent=2)
+
+        featurize, model = self._export_featurize(), self.model
+
+        class Forward(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.model = model
+
+            def forward(self, waves):
+                return self.model(featurize(waves))
+
+        sr = self.configs.dataset_conf.get("dataset", {}).get(
+            "sample_rate", 16000)
+        ma = dict(self.configs.preprocess_conf.get("method_args", {}))
+        if self.configs.preprocess_conf.feature_method == "Fbank":
+            step = int(sr * float(ma.get("frame_shift", 10.0)) / 1000)
+            rest = int(sr * float(ma.get("frame_length", 25.0)) / 1000) - step
+        else:
+            # centred-STFT methods: f + 1 frames at a hop-aligned length
+            # (the featurizer's hop, win_length // 4 when unset; JAX takes
+            # 160 when unset, which the default hop of 128 does not divide)
+            step = int(ma.get("hop_length")
+                       or (ma.get("win_length") or ma.get("n_fft", 512)) // 4)
+            rest = 0
+        dim, shape = torch.export.Dim, {}
+        if export_batch is None:
+            shape[0] = dim("b", min=1, max=4096)
+        if export_seconds is None:
+            shape[1] = step * dim("f", min=self._export_min_frames(),
+                                  max=2 ** 20) + rest
+            example_len = step * 300 + rest
+        else:
+            example_len = int(export_seconds * sr)
+        batch = 2 if export_batch is None else int(export_batch)
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            example = torch.zeros((batch, example_len), dtype=torch.float32,
+                                  device=self.device)
+            with torch.no_grad():
+                program = torch.export.export(
+                    Forward(), (example,),
+                    dynamic_shapes={"waves": shape} if shape else None)
+            torch.export.save(program, os.path.join(infer_dir, "model.pt2"))
+        finally:
+            self.model.train(was_training)
+        logger.info(f"inference model saved: {infer_dir}")
+        return infer_dir
 
 
 # reference-compatible alias (``ppvector.trainer.PPVectorTrainer``)
