@@ -92,9 +92,25 @@ Phases (any failure raises and the script exits non-zero):
             reloaded and held against the Predictor's kernel path at two
             batches and two lengths; infer_recognition registers two users
             and recognises a 12 s clip (the three kernels)
+12. parallel data parallelism at the stock CAM++'s width, on phase 10's
+            seeded corpus: two ranks on cuda:0 (gloo with CUDA tensors)
+            started by the port's launcher run 4 DDP steps at b32 x 3 s
+            each, held against one process at b64 on the same batches
+            (the mean rank loss within 1e-3 relative, the parameters at
+            cos >= 0.9999); rank 0 saves a checkpoint_format: orbax (DCP)
+            checkpoint; both ranks evaluate() their shards of the 16
+            enroll and 24 trial clips of 3-20 s through the three kernels
+            and report the EER and MinDCF of a world-1 evaluate() within
+            1e-6; one rank over NCCL takes a DDP step; Predictor serves
+            the DCP checkpoint (cos >= 0.9999 against model.pt) and
+            Predictor(data_parallel=True, devices=[cuda:0, cuda:0]) holds
+            11 clips of 1-8 s and one of 16 s against one device (cos >=
+            0.9999); the step ms of both, the collectives timed alone
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-is a JSON object with one entry per kernel.
+is a JSON object with one entry per kernel. ``chip_smoke.py --phase12-rank
+<dir>`` and ``--phase12-nccl <dir>`` are phase 12's rank programs, which
+the phase starts itself.
 """
 
 import json
@@ -934,8 +950,10 @@ def product_flops(model, x):
 def kernel_split(fn, n_top=4):
     """Device time of one ``fn()`` by kernel, from ``torch.profiler``
     (CUDA activity): the traced total, the share in conv / matmul kernels
-    (names with gemm, conv, xmma or cutlass) and the ``n_top`` kernels by
-    time. ``traced_ms`` is 0 where the profiler records no device time."""
+    (names with gemm, conv, xmma or cutlass), the device operations
+    (kernels and copies) counted, the ms in NCCL kernels and in memory
+    copies, and the ``n_top`` kernels by time. ``traced_ms`` is 0 where
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -943,14 +961,21 @@ def kernel_split(fn, n_top=4):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.device_time_total / 1e3)
-                   for e in prof.key_averages()), key=lambda r: -r[1])
-    total = sum(ms_ for _, ms_ in rows)
-    products = sum(ms_ for k, ms_ in rows if any(
-        w in k.lower() for w in ("gemm", "conv", "xmma", "cutlass")))
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.device_time_total > 0),
+                  key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+
+    def named(*words):
+        return sum(r[1] for r in rows if any(w in r[0].lower()
+                                             for w in words))
+
+    products = named("gemm", "conv", "xmma", "cutlass")
     return {"traced_ms": total,
             "products_share": products / total if total else None,
-            "top": [(k[:70], ms_) for k, ms_ in rows[:n_top]]}
+            "device_ops": sum(r[2] for r in rows),
+            "nccl_ms": named("nccl"), "memcpy_ms": named("memcpy"),
+            "top": [(k[:70], ms_) for k, ms_, _ in rows[:n_top]]}
 
 
 def row_cos(a, b):
@@ -1984,6 +2009,561 @@ def workflow_phase(dev, card):
     return out
 
 
+# ---- 12. data parallelism ----------------------------------------------------
+P12_STEPS = 4            # DDP steps held against one process
+P12_BATCH = 64           # the global batch: b32 on each of two ranks
+# the bar on the cosine of the DDP run's parameter change against one
+# process's. Adam's first steps move each weight by about the LR whatever
+# its gradient's size, so weights of near-zero gradient move by rounding
+# noise: on an NVIDIA H100 80GB HBM3 at 700 W two gloo ranks read
+# 0.9984889 and the same steps with no gradient exchange 0.4309177 (and
+# a loss 4.66e-2 apart); the fault must fail this bar and the loss's
+P12_DELTA_COS = 0.99
+
+
+def _kernel_modules():
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel as fk
+    return fk, fkm, tk
+
+
+def p12_steps(tr, batches, dev, rank=0, world=1):
+    """``tr.train_step`` on this rank's rows of each global batch (rows
+    ``[r n / w, (r + 1) n / w)``): the losses, the CUDA-event ms of each
+    step and the kernel launches of the steps (counts set to 0 first)."""
+    kernels = _kernel_modules()
+    tr.model.train()
+    tr.classifier.train()
+    reset_launches(*kernels)
+    losses, events = [], []
+    for data, labels, lens in batches:
+        n = data.shape[0] // world
+        rows = slice(rank * n, (rank + 1) * n)
+        x = [torch.from_numpy(a[rows]).to(dev) for a in (data, labels, lens)]
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        loss, _ = tr.train_step("waveforms", *x)
+        e.record()
+        losses.append(loss)
+        events.append((s, e))
+    launches = read_launches(*kernels)
+    return ([float(x) for x in losses], [s.elapsed_time(e) for s, e in events],
+            launches)
+
+
+def p12_evaluate(tr):
+    """``tr.evaluate()`` with the kernel counts set to 0 first: the EER,
+    MinDCF, threshold, wall seconds and launches."""
+    kernels = _kernel_modules()
+    reset_launches(*kernels)
+    t = time.perf_counter()
+    eer, min_dcf, threshold = tr.evaluate()
+    return {"eer": eer, "min_dcf": min_dcf, "threshold": threshold,
+            "wall_s": time.perf_counter() - t,
+            "launches": read_launches(*kernels)}
+
+
+def collective_ms(numel, dev, iters):
+    """Host ms of one all-reduce of ``numel`` fp32 on ``dev`` over the
+    process group, synchronized on both ends (a mean of ``iters``)."""
+    buf = torch.ones(numel, device=dev)
+    torch.distributed.all_reduce(buf)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(iters):
+        torch.distributed.all_reduce(buf)
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def calibrated_bn(model, feats):
+    """A copy of ``model`` whose BatchNorm running statistics are the
+    cumulative averages of the batch statistics over ``feats`` (a list of
+    ``(features, ratios)``), the rest of its weights unchanged."""
+    import copy
+
+    from voiceprintrecognition_paddlepaddle_torch.models.layers import \
+        BatchNorm
+
+    cal = copy.deepcopy(model).train()
+    bns = [m for m in cal.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None
+    with torch.no_grad():
+        for x, lens in feats:
+            cal(x, lengths=lens)
+    for m in bns:
+        m.momentum = 0.1
+    return cal.eval()
+
+
+def parallel_rank(work):
+    """Phase 12, one rank (``chip_smoke.py --phase12-rank <work>`` under
+    the port's launcher): ``P12_STEPS`` DDP steps on this rank's share of
+    each global batch, rank 0 saves an orbax (DCP) checkpoint; the same
+    steps from the same weights with no gradient exchange (every step
+    under DDP's ``no_sync``: each rank trains on its share alone), the
+    fault the held steps must tell apart; one DDP step traced; every rank
+    evaluates its shard of the lists with ``<work>/eval_model.pt``, and
+    the collectives are timed alone. Rank 0 saves its weights after each
+    run. Writes ``<work>/rank<r>.json``."""
+    from voiceprintrecognition_paddlepaddle_torch.models import layers
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+    from voiceprintrecognition_paddlepaddle_torch.utils.checkpoint import \
+        save_checkpoint
+
+    with open(os.path.join(work, "phase12.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    # true fp32 convs on both sides of the holds, the steps and the
+    # evaluation (see parallel_phase)
+    torch.backends.cudnn.allow_tf32 = False
+
+    def trainer():
+        tr = Trainer(spec["cfg"], device="cuda")
+        tr._setup_dataloader(is_train=True)
+        tr._setup_model(80, is_train=True)
+        return tr
+
+    def save_weights(tr, tag):
+        for part in ("model", "classifier"):
+            torch.save({k: v.cpu()
+                        for k, v in getattr(tr, part).state_dict().items()},
+                       os.path.join(work, f"{tag}_{part}.pt"))
+
+    tr = trainer()
+    rank, world, dev = tr.rank, tr.world, tr.device
+    data = np.load(os.path.join(work, "batches.npz"))
+    batches = [tuple(data[f"{k}{i}"] for k in ("data", "labels", "lens"))
+               for i in range(P12_STEPS)]
+    # the BatchNorm collectives of the steps, counted
+    calls = {"all_gather_stacked": 0, "all_reduce_sum": 0}
+    real = {name: getattr(layers, name) for name in calls}
+
+    def counted(name):
+        def call(*a):
+            calls[name] += 1
+            return real[name](*a)
+        return call
+
+    for name in calls:
+        setattr(layers, name, counted(name))
+    try:
+        losses, step_ms, train_launches = p12_steps(tr, batches, dev, rank,
+                                                    world)
+    finally:
+        for name, fn in real.items():
+            setattr(layers, name, fn)
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "backend": torch.distributed.get_backend(),
+           "ddp": type(tr._net).__name__, "losses": losses,
+           "step_ms": step_ms, "train_launches": train_launches,
+           "bn_collectives_per_step": {k: v / P12_STEPS
+                                       for k, v in calls.items()},
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    if rank == 0:
+        save_weights(tr, "rank0")
+        save_checkpoint(tr.configs, tr.train_state(),
+                        os.path.join(work, "ckpt"), 1)
+    torch.distributed.barrier()
+    # the fault: the same steps, no gradient exchange on any of them
+    fault = trainer()
+    with fault._train_net().no_sync():
+        out["nosync_losses"] = p12_steps(fault, batches, dev, rank, world)[0]
+    if rank == 0:
+        save_weights(fault, "nosync")
+    del fault
+    # one DDP step traced on each rank (every rank steps together)
+    rows = slice(rank * P12_BATCH // world, (rank + 1) * P12_BATCH // world)
+    first = [torch.from_numpy(a[rows]).to(dev) for a in batches[0]]
+    out["trace"] = kernel_split(lambda: tr.train_step("waveforms", *first),
+                                n_top=3)
+    tr.model.load_state_dict(torch.load(os.path.join(work, "eval_model.pt")))
+    out["eval"] = p12_evaluate(tr)
+    if rank == 0:
+        np.savez(os.path.join(work, "rank0_eval.npz"), **{
+            f"{part}_{i}": (a.cpu().numpy() if torch.is_tensor(a) else a)
+            for part, pair in tr.eval_embeddings.items()
+            for i, a in enumerate(pair)})
+    n_grad = sum(p.numel() for m in (tr.model, tr.classifier)
+                 for p in m.parameters())
+    out["grad_numel"] = n_grad
+    out["grad_all_reduce_ms"] = collective_ms(n_grad, dev, 5)
+    out["bn_all_reduce_ms"] = collective_ms(2 * 512 + 1, dev, 20)
+    out["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def parallel_nccl(work):
+    """Phase 12, NCCL at world 1 (``chip_smoke.py --phase12-nccl <work>``
+    under the launcher with one rank): one DDP step on the first half of
+    the first batch. Writes ``<work>/nccl.json``."""
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    with open(os.path.join(work, "phase12.json"), encoding="utf-8") as f:
+        spec = json.load(f)
+    tr = Trainer(spec["cfg"], device="cuda")
+    tr._setup_dataloader(is_train=True)
+    tr._setup_model(80, is_train=True)
+    data = np.load(os.path.join(work, "batches.npz"))
+    half = P12_BATCH // 2
+    batch = tuple(data[f"{k}0"][:half] for k in ("data", "labels", "lens"))
+    losses, step_ms, launches = p12_steps(tr, [batch], tr.device)
+    with open(os.path.join(work, "nccl.json"), "w", encoding="utf-8") as f:
+        json.dump({"backend": torch.distributed.get_backend(),
+                   "world": tr.world, "ddp": type(tr._net).__name__,
+                   "loss": losses[0], "step_ms": step_ms[0],
+                   "launches": launches}, f)
+    torch.distributed.destroy_process_group()
+
+
+def launch_ranks(nproc, flag, work, timeout):
+    """``chip_smoke.py <flag> <work>`` on ``nproc`` ranks through the
+    port's launcher; raises with the ranks' last output if any fails.
+    Returns the wall seconds."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PORT}.launch_multihost", "--nproc",
+         str(nproc), "--timeout", str(timeout), "--", sys.executable,
+         os.path.abspath(__file__), flag, work], cwd=ROOT,
+        capture_output=True, text=True, timeout=timeout + 60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{flag} on {nproc} rank(s) failed "
+                           f"({proc.returncode}):\n{proc.stderr[-6000:]}")
+    return time.perf_counter() - t
+
+
+def parallel_phase(dev, card, nproc=2):
+    """Phase 12: data parallelism at the stock CAM++'s width on the card.
+    ``nproc`` ranks through the port's launcher (two on cuda:0 by default:
+    gloo with CUDA tensors; one a card over NCCL where there are as many
+    cards): DDP steps at b64 / ``nproc`` each held against one process at
+    b64 on the same batches, evaluate() at world ``nproc`` against world
+    1, an orbax (DCP) checkpoint saved by rank 0; NCCL at world 1;
+    Predictor over the DCP checkpoint and Predictor(data_parallel=True)
+    over two replicas on cuda:0 (over every card where there are more).
+
+    The held steps run cuDNN's convs in true fp32 on both sides: in TF32
+    (PyTorch's default) b32 and b64 take other conv algorithms, whose
+    rounding moved the loss by 8e-4 relative within 4 steps (this phase
+    on an NVIDIA H100 80GB HBM3 at 700 W), next to the 1e-3 bar that
+    holds DDP's semantics. The evaluations, at world 2 and world 1, run
+    them in fp32 too: with TF32 allowed, cuDNN took a TF32 algorithm for
+    some plain FCM conv in one process and a full fp32 one in another, in
+    some runs only, so rank 0's gathered embeddings sat at cos 0.9976661
+    of world 1's, which was the cosine of world 1's own embeddings in
+    fp32 against TF32 (this phase on an NVIDIA H100 80GB HBM3 at 700 W).
+
+    Both evaluations embed with the seeded initial weights whose BatchNorm
+    statistics are calibrated on the held batches (``calibrated_bn``), one
+    clip a batch (eval_conf.batch_size 1). With the initial statistics
+    every clip embeds nearly alike: a world-1 evaluate() at eval batch 8
+    and at batch 1 put its EER threshold at a score of 0.99999988 and gave
+    EERs 0.3125 and 0.2738 from embeddings at cos 0.99999999 of each
+    other, and world 2 against world 1 gave EERs 3.6e-2 apart from the
+    same embeddings in another order (this phase on an NVIDIA H100 80GB
+    HBM3 at 700 W): the EER followed the order of near-equal scores. One
+    clip a batch gives each clip the same bucket at any world size."""
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    kernels = _kernel_modules()
+    t0 = time.perf_counter()
+    out = {"card": card}
+    work = tempfile.mkdtemp(prefix="vpr_parallel_")
+    try:
+        lists = synth_corpus(work)
+        cfg64, _ = train_config(lists, **{"dataset_conf.eval_conf.batch_size": 1})
+        cfg_rank, _ = train_config(lists, **{
+            "dataset_conf.sampler.batch_size": P12_BATCH // nproc,
+            "dataset_conf.eval_conf.batch_size": 1,
+            "train_conf.checkpoint_format": "orbax"})
+        ref = Trainer(cfg64, device=dev)
+        ref._setup_dataloader(is_train=True)
+        ref._setup_model(80, is_train=True)
+        theta0 = {f"{part}.{k}": v.detach().clone()
+                  for part in ("model", "classifier")
+                  for k, v in getattr(ref, part).state_dict().items()}
+        it = iter(ref.train_loader)
+        batches = [next(it)[1:] for _ in range(P12_STEPS)]
+        cal = calibrated_bn(ref.model, [
+            (ref.featurize("waveforms", *(torch.from_numpy(a).to(dev)
+                                          for a in (data, lens))),
+             torch.from_numpy(lens).to(dev)) for data, _, lens in batches])
+        torch.save({k: v.cpu() for k, v in cal.state_dict().items()},
+                   os.path.join(work, "eval_model.pt"))
+        del cal
+        np.savez(os.path.join(work, "batches.npz"), **{
+            f"{k}{i}": a for i, b in enumerate(batches)
+            for k, a in zip(("data", "labels", "lens"), b)})
+        with open(os.path.join(work, "phase12.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump({"cfg": cfg_rank}, f)
+        torch.cuda.empty_cache()
+
+        # -- the ranks: DDP steps, DCP save, evaluate ------------------------
+        out["ranks_wall_s"] = launch_ranks(nproc, "--phase12-rank", work, 420)
+        ranks = []
+        for r in range(nproc):
+            with open(os.path.join(work, f"rank{r}.json"),
+                      encoding="utf-8") as f:
+                ranks.append(json.load(f))
+        out["ranks"] = ranks
+        for r in ranks:
+            log(f"[parallel] {card}: rank {r['rank']} of {r['world']} on "
+                f"{r['device']}, backend {r['backend']}, {r['ddp']}: losses "
+                f"{[round(x, 5) for x in r['losses']]}, step ms "
+                f"{[round(x, 1) for x in r['step_ms']]}, train launches "
+                f"{r['train_launches']}; BN collectives a step "
+                f"{r['bn_collectives_per_step']}; one all-reduce of the "
+                f"{r['grad_numel']} gradient floats {r['grad_all_reduce_ms']:.2f}"
+                f" ms, of 1025 floats {r['bn_all_reduce_ms']:.3f} ms (host "
+                f"clock, alone); evaluate() EER {r['eval']['eer']:.6f} MinDCF "
+                f"{r['eval']['min_dcf']:.6f} in {r['eval']['wall_s']:.2f} s, "
+                f"launches {r['eval']['launches']}; peak "
+                f"{r['peak_gb']:.2f} GB; rank wall {r['wall_s']:.1f} s")
+
+        # -- one process at b64 on the same batches --------------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            ref_losses, ref_ms, ref_launches = p12_steps(ref, batches, dev)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        ddp_losses = [sum(x) / nproc
+                      for x in zip(*(r["losses"] for r in ranks))]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ddp_losses,
+                                                           ref_losses))
+
+        def saved(tag):
+            return {f"{part}.{k}": v for part in ("model", "classifier")
+                    for k, v in torch.load(os.path.join(
+                        work, f"{tag}_{part}.pt")).items()}
+
+        want = {f"{part}.{k}": v for part in ("model", "classifier")
+                for k, v in getattr(ref, part).state_dict().items()}
+        got, fault = saved("rank0"), saved("nosync")
+        names = [n for n in ref.param_names if n in want]
+
+        def flat(d, base=None):
+            return torch.cat([(d[n].double().to(dev) - (
+                0 if base is None else base[n].double())).flatten()
+                for n in names])
+
+        def cos(a, b):
+            return float((a @ b) / (a.norm() * b.norm()))
+
+        param_cos = cos(flat(got), flat(want))
+        # the parameters' change over the steps: what the gradients did
+        step_want = flat(want, theta0)
+        delta_cos = cos(flat(got, theta0), step_want)
+        fault_cos = cos(flat(fault, theta0), step_want)
+        leaf_cos = min((float(torch.nn.functional.cosine_similarity(
+            got[n].double().flatten().to(dev), want[n].double().flatten(),
+            dim=0)), n) for n in names if want[n].abs().max() > 0)
+        stats_rel = max(float((got[n].to(dev) - want[n]).abs().max()
+                              / max(float(want[n].abs().max()), 1e-6))
+                        for n in want if "running_" in n)
+        ddp_step = ms(ranks[0]["step_ms"][1:])
+        ref_step = ms(ref_ms[1:])
+        fault_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            [sum(x) / nproc for x in zip(*(r["nosync_losses"]
+                                          for r in ranks))], ref_losses))
+        share = ((ranks[0]["grad_all_reduce_ms"]
+                  + sum(ranks[0]["bn_collectives_per_step"].values())
+                  * ranks[0]["bn_all_reduce_ms"]) / ddp_step)
+        out["train"] = {
+            "ddp_losses": ddp_losses, "ref_losses": ref_losses,
+            "loss_rel": loss_rel, "param_cos": param_cos,
+            "delta_cos": delta_cos, "nosync_delta_cos": fault_cos,
+            "nosync_loss_rel": fault_rel,
+            "leaf_cos_min": leaf_cos, "bn_stats_rel": stats_rel,
+            "ddp_step_ms": ddp_step, "ref_step_ms": ref_step,
+            "ref_step_ms_all": ref_ms, "collective_share_est": share,
+            "ref_launches": ref_launches,
+            "ref_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        log(f"[parallel] {card}: {P12_STEPS} DDP steps, {nproc} ranks x "
+            f"b{P12_BATCH // nproc} x 3 s, against one process at b64 x 3 s "
+            f"on the same "
+            f"batches: mean rank loss {[round(x, 5) for x in ddp_losses]} vs "
+            f"{[round(x, 5) for x in ref_losses]} (fp32 convs; rel "
+            f"{loss_rel:.2e}, bar "
+            f"1e-3); parameters after {P12_STEPS} steps cos {param_cos:.7f} "
+            f"(bar 0.9999), leaf min {leaf_cos[0]:.6f} ({leaf_cos[1]}); their "
+            f"change over the steps cos {delta_cos:.7f} (bar {P12_DELTA_COS}"
+            f"); the same steps with no gradient exchange (no_sync on each): "
+            f"change cos {fault_cos:.7f}, loss rel {fault_rel:.2e} (must "
+            f"fail both bars); BN statistics rel {stats_rel:.2e} (bar 1e-3); "
+            f"step {ddp_step:.2f} ms (rank 0, "
+            f"steps 2-{P12_STEPS}, CUDA events) vs one process "
+            f"{ref_step:.2f} ms; collectives timed alone, an estimate of "
+            f"{100 * share:.1f} % of the DDP step")
+        n_cards = torch.cuda.device_count()
+        backend = "nccl" if nproc <= n_cards else "gloo"
+        if fault_cos >= P12_DELTA_COS or fault_rel < 1e-3:
+            raise AssertionError("the held steps cannot tell a DDP run "
+                                 "without the gradient exchange apart")
+        if not (loss_rel < 1e-3 and param_cos >= 0.9999
+                and delta_cos >= P12_DELTA_COS and stats_rel <= 1e-3
+                and all(r["ddp"] == "DistributedDataParallel"
+                        and r["backend"] == backend and r["world"] == nproc
+                        and r["device"] == f"cuda:{r['rank'] % n_cards}"
+                        for r in ranks)
+                and all(n == P12_STEPS for n in
+                        (r["train_launches"]["fbank"] for r in ranks))
+                and ref_launches["fbank"] == P12_STEPS):
+            raise AssertionError("the DDP steps disagree with one process, or "
+                                 "a rank did not run on its card under DDP")
+
+        # -- one step traced: a rank under DDP against one process ----------
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            b0 = [torch.from_numpy(a).to(dev) for a in batches[0]]
+            ref_trace = kernel_split(lambda: ref.train_step("waveforms", *b0),
+                                     n_top=3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        out["trace"] = {"rank0": ranks[0]["trace"], "one_process": ref_trace}
+        for name, tr_, step in (
+                (f"rank 0 of {nproc} at b{P12_BATCH // nproc}",
+                 ranks[0]["trace"], ddp_step),
+                (f"one process at b{P12_BATCH}", ref_trace, ref_step)):
+            log(f"[parallel] {card}: one step traced (torch.profiler), "
+                f"{name}: device {tr_['traced_ms']:.2f} ms of a {step:.2f} ms "
+                f"step (busy {100 * tr_['traced_ms'] / step:.1f} %), "
+                f"{tr_['device_ops']} device operations, NCCL kernels "
+                f"{tr_['nccl_ms']:.3f} ms, copies {tr_['memcpy_ms']:.3f} ms; "
+                f"top " + "; ".join(f"{k} {v:.3f} ms" for k, v in tr_["top"]))
+
+        # -- evaluate() at world 1 with the same weights ---------------------
+        ev1 = Trainer(cfg64, device=dev)
+        ev1._setup_dataloader()
+        ev1._setup_model(80)
+        ev1.model.load_state_dict(torch.load(
+            os.path.join(work, "eval_model.pt")))
+        # in fp32 convs, as the ranks; then once in TF32 (PyTorch's
+        # default): how far the precision of the plain FCM's convs moves
+        # these embeddings
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            world1 = p12_evaluate(ev1)
+            emb_fp32 = {k: v[0].clone()
+                        for k, v in ev1.eval_embeddings.items()}
+            torch.backends.cudnn.allow_tf32 = True
+            ev1.evaluate()
+            world1["tf32_vs_fp32_cos_min"] = min(
+                cos_min(ev1.eval_embeddings[k][0].cpu(), v.cpu())
+                for k, v in emb_fp32.items())
+            ev1.eval_embeddings = {k: (emb_fp32[k], v[1])
+                                   for k, v in ev1.eval_embeddings.items()}
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        out["eval_world1"] = world1
+        diffs = [abs(r["eval"][k] - world1[k]) for r in ranks
+                 for k in ("eer", "min_dcf")]
+        # rank 0's gather against world 1's rows in rank order (rank r
+        # embeds clips r, r + 2, ...)
+        gathered = np.load(os.path.join(work, "rank0_eval.npz"))
+        emb_cos, labels_equal = [], True
+        for part, (emb, labels) in ev1.eval_embeddings.items():
+            n = len(labels)
+            order = np.concatenate([np.arange(n)[r::nproc]
+                                    for r in range(nproc)])
+            emb_cos.append(cos_min(torch.from_numpy(gathered[f"{part}_0"]),
+                                   emb[order].cpu()))
+            labels_equal &= bool(np.array_equal(gathered[f"{part}_1"],
+                                                labels[order]))
+        world1["gather_cos_min"] = min(emb_cos)
+        log(f"[parallel] {card}: evaluate() at world 1 (the initial weights, "
+            f"BN statistics calibrated): EER {world1['eer']:.6f} MinDCF "
+            f"{world1['min_dcf']:.6f}, threshold {world1['threshold']:.6f} in "
+            f"{world1['wall_s']:.2f} s, launches {world1['launches']}; world "
+            f"{nproc} ranks against it: max |d| {max(diffs):.2e} (bar 1e-6); "
+            f"rank 0's gathered embeddings against world 1's in rank order: cos "
+            f"min {min(emb_cos):.7f} (bar 0.9999), labels equal "
+            f"{labels_equal} (fp32 convs on both sides); world 1 in TF32 "
+            f"against fp32: cos min {world1['tf32_vs_fp32_cos_min']:.7f}")
+        if not (max(diffs) <= 1e-6 and labels_equal and min(emb_cos) >= 0.9999
+                and all(min(r["eval"]["launches"].values()) > 0
+                        for r in ranks)
+                and min(world1["launches"].values()) > 0):
+            raise AssertionError("evaluate() at world 2 disagrees with world "
+                                 "1, or a rank's evaluation skipped a kernel")
+
+        # -- NCCL at world 1 -------------------------------------------------
+        torch.cuda.empty_cache()
+        out["nccl_wall_s"] = launch_ranks(1, "--phase12-nccl", work, 300)
+        with open(os.path.join(work, "nccl.json"), encoding="utf-8") as f:
+            nccl = json.load(f)
+        out["nccl"] = nccl
+        log(f"[parallel] {card}: one rank, backend {nccl['backend']}, "
+            f"{nccl['ddp']}: one step b32 x 3 s, loss {nccl['loss']:.5f}, "
+            f"{nccl['step_ms']:.1f} ms (first step: DDP and NCCL set up), "
+            f"launches {nccl['launches']}; {out['nccl_wall_s']:.1f} s")
+        if not (nccl["backend"] == "nccl" and nccl["world"] == 1
+                and nccl["ddp"] == "DistributedDataParallel"
+                and np.isfinite(nccl["loss"])
+                and nccl["launches"]["fbank"] == 1):
+            raise AssertionError("the NCCL step did not run")
+
+        # -- Predictor: the DCP checkpoint; data parallel --------------------
+        rng = np.random.RandomState(SEED + 12)
+        clips = [(rng.randn(int(rng.uniform(1.0, 8.0) * 16000)) * 0.1)
+                 .astype(np.float32) for _ in range(11)]
+        clips.append((rng.randn(16 * 16000) * 0.1).astype(np.float32))
+        ckpt = os.path.join(work, "ckpt", "CAMPPlus_Fbank", "epoch_1")
+        pt = os.path.join(work, "rank0_model.pt")
+        one_pt = Predictor(cfg64, model_path=pt, device=dev)
+        one_dcp = Predictor(cfg64, model_path=ckpt, device=dev)
+        dp = Predictor(cfg64, model_path=ckpt, device=dev, data_parallel=True,
+                       devices=[dev, dev] if n_cards == 1 else None)
+        e_pt = torch.from_numpy(one_pt.predict_batch(clips))
+        e_dcp = torch.from_numpy(one_dcp.predict_batch(clips))
+        reset_launches(*kernels)
+        t = time.perf_counter()
+        e_dp = torch.from_numpy(dp.predict_batch(clips))
+        dp_wall = time.perf_counter() - t
+        dp_launches = read_launches(*kernels)
+        pred = {"files": sorted(os.listdir(ckpt)),
+                "dcp_vs_pt_cos": cos_min(e_dcp, e_pt),
+                "dp_vs_one_cos": cos_min(e_dp, e_pt),
+                "replicas": [str(d) for d, _, _ in dp._replicas],
+                "dp_wall_s": dp_wall, "dp_launches": dp_launches}
+        out["predictor"] = pred
+        log(f"[parallel] {card}: the orbax checkpoint saved at world {nproc} "
+            f"holds {pred['files']}; Predictor(model.dcp) against "
+            f"Predictor(model.pt) of the same weights cos "
+            f"{pred['dcp_vs_pt_cos']:.7f}; Predictor(data_parallel=True, "
+            f"devices={pred['replicas']}) over 11 clips of 1-8 s and one of "
+            f"16 s against one device cos {pred['dp_vs_one_cos']:.7f} (bars "
+            f"0.9999), {dp_wall:.2f} s, launches {dp_launches}")
+        if not (pred["dcp_vs_pt_cos"] >= 0.9999
+                and pred["dp_vs_one_cos"] >= 0.9999
+                and "model.dcp" in pred["files"]
+                and min(dp_launches.values()) >= len(dp._replicas)):
+            raise AssertionError("the DCP checkpoint or the data-parallel "
+                                 "Predictor is wrong")
+        out["launches"] = {
+            **{f"rank{r['rank']}_train": r["train_launches"] for r in ranks},
+            **{f"rank{r['rank']}_eval": r["eval"]["launches"] for r in ranks},
+            "world1_eval": world1["launches"], "nccl_step": nccl["launches"],
+            "predictor_dp": dp_launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[parallel] {card}: phase 12 wall {out['wall_s']:.1f} s (ranks "
+        f"{out['ranks_wall_s']:.1f} s, NCCL {out['nccl_wall_s']:.1f} s)")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -2255,10 +2835,17 @@ def main():
     # ---- 11. the single-card workflow: convert, extract, train, export ---
     workflow = workflow_phase(dev, card)
     print(json.dumps({"workflow": workflow}), flush=True)
+
+    # ---- 12. data parallelism: DDP, rank-sharded eval, DCP, DP serving ---
+    parallel = parallel_phase(dev, card)
+    print(json.dumps({"parallel": parallel}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def phase11_launches(kernel):
         return {path: n[kernel] for path, n in workflow["launches"].items()}
+
+    def phase12_launches(kernel):
+        return {path: n[kernel] for path, n in parallel["launches"].items()}
 
     train_launches = {"fbank_per_step": 1,
                       "eval": training["eval"]["launches"],
@@ -2278,6 +2865,7 @@ def main():
         "launches_train_path": train_launches["train_path"]["fbank"],
         "launches_eval": train_launches["eval"]["fbank"],
         "launches_phase11": phase11_launches("fbank"),
+        "launches_phase12": phase12_launches("fbank"),
         "ms": ms(fb3["ms"]), "plain_ms": ms(fb3["plain_ms"]), **fb_bound,
         "library_ms": None, "cufft_ms": ms(fb3["cufft_ms"]),
         "graph_ms": ms(fb3["graph_ms"]), "shape": "b256 x 3 s"}
@@ -2308,6 +2896,7 @@ def main():
          "launches": launches["fcm"], "max_abs_err": fcm_max,
          "launches_eval": train_launches["eval"]["fcm"],
          "launches_phase11": phase11_launches("fcm"),
+         "launches_phase12": phase12_launches("fcm"),
          "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
          **fcm_bounds["b32 x 16 s"], "library_ms": None,
          "cudnn_ms": ms(f16["cudnn_ms"]),
@@ -2328,6 +2917,7 @@ def main():
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
          "launches_eval": train_launches["eval"]["campplus_trunk"],
          "launches_phase11": phase11_launches("campplus_trunk"),
+         "launches_phase12": phase12_launches("campplus_trunk"),
          "ms": ms(tr_kern), "plain_ms": ms(tr_plain), **tr_bound,
          "library_ms": None, "shape": "b256 x 3 s",
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),
@@ -2345,4 +2935,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--phase12-rank"]:
+        parallel_rank(sys.argv[2])
+    elif sys.argv[1:2] == ["--phase12-nccl"]:
+        parallel_nccl(sys.argv[2])
+    else:
+        main()

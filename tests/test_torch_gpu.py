@@ -521,3 +521,116 @@ def test_evaluate_takes_the_kernel_path_with_repacked_weights(cuda, corpus):
             x = torch.from_numpy(tr.enroll_dataset[i][0]).to(cuda)[None]
             f = features.apply_cmn_and_mask(kaldi.fbank(x, n_mels=80))
             assert cos_min(tr.model(f), enroll[i:i + 1]) > 0.999
+
+
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda:1")
+
+
+def test_each_kernel_launches_on_its_tensors_device(second_card, model):
+    """The current device is cuda:0 and every tensor lies on cuda:1: each
+    wrapper launches its kernel on cuda:1 with cuda:1's stream (the CUDA
+    side asks the current device), so each result matches its plain
+    version there, and the current device is cuda:0 again after it."""
+    import copy
+
+    dev = second_card
+    m1 = copy.deepcopy(model).to(dev)
+    packed_fcm, packed = fkm.pack_fcm(m1), tk.pack_trunk(m1)
+    waves = _waves(3, 2, 256000).to(dev)
+    feats = _fcm_feats(2, 1598, dev)
+    torch.cuda.set_device(0)
+    before = (fk.fbank_fused.launches, fkm.fcm_fused.launches,
+              tk.trunk_stats.launches)
+    fb = fk.fbank_fused(waves, n_mels=80)
+    fc = fkm.fcm_fused(packed_fcm, feats)
+    st = tk.trunk_stats(packed, fc, [1600, 811])
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert (fk.fbank_fused.launches, fkm.fcm_fused.launches,
+            tk.trunk_stats.launches) == tuple(n + 1 for n in before)
+    assert fb.device == fc.device == st.device == dev
+    d = (fb - fk.fbank_fused_reference(waves, n_mels=80)).abs().cpu().numpy()
+    assert d.max() < 2e-2 and np.percentile(d, 99) < 1e-3
+    ref = fkm.fcm_reference(packed_fcm, feats).double().cpu()
+    got = fc.double().cpu()
+    assert float((got * ref).sum() / (got.norm() * ref.norm())) > 0.9999
+    ref = tk.trunk_stats_reference(packed, fc, [1600, 811]).double().cpu()
+    got = st.double().cpu()
+    assert float((got * ref).sum() / (got.norm() * ref.norm())) > 0.9999
+    assert float((got - ref).abs().max()) < 5e-3 * max(
+        1.0, float(ref.abs().max()))
+
+
+def test_data_parallel_predictor_over_two_cards(second_card, model,
+                                                tmp_path):
+    """``Predictor(data_parallel=True)`` over every card against the one
+    device ``Predictor``: 11 ragged 1-8 s clips and a 16 s clip (the FCM
+    kernel), each card's share through the three kernels."""
+    from chip_smoke import CONFIG, cos_min
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+
+    path = str(tmp_path / "model.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, path)
+    pred = Predictor(CONFIG, model_path=path, device="cuda",
+                     data_parallel=True)
+    assert [str(d) for d, _, _ in pred._replicas] == [
+        f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    one = Predictor(CONFIG, model_path=path, device="cuda")
+    rng = np.random.RandomState(12)
+    clips = [(rng.randn(int(rng.uniform(1, 8) * 16000)) * 0.1)
+             .astype(np.float32) for _ in range(11)]
+    clips.append((rng.randn(16 * 16000) * 0.1).astype(np.float32))
+    before = fkm.fcm_fused.launches
+    got = pred.predict_batch(clips)
+    assert fkm.fcm_fused.launches > before
+    assert cos_min(torch.from_numpy(one.predict_batch(clips)),
+                   torch.from_numpy(got)) >= 0.9999
+
+
+def test_collectives_take_cuda_tensors(cuda, tmp_path):
+    """The ragged gather, the cross-rank BatchNorm (forward and backward)
+    and the triplet loss's gather with autograd at world 2 on CUDA tensors
+    (two ranks on one card: gloo; a card each: NCCL) give what the same
+    programs give on the CPU, which ``tests/test_torch_parallel.py`` holds
+    against the JAX package."""
+    from test_torch_parallel_ranks import launch_ranks
+
+    rng = np.random.RandomState(0)
+    bn = {name: {k: torch.from_numpy(v) for k, v in dict(
+        x=rng.randn(*shape) * 2 + 0.5, dy=rng.randn(*shape),
+        scale=rng.uniform(0.5, 1.5, shape[1]),
+        bias=rng.randn(shape[1]) * 0.2, mean=rng.randn(shape[1]) * 0.2,
+        var=rng.uniform(0.5, 1.5, shape[1])).items()}
+        for name, shape in (("BC", (8, 6)), ("BCFT", (8, 4, 3, 5)))}
+    labels = np.repeat(np.arange(4), 2)
+    rng.shuffle(labels)
+    triplet = dict(args=dict(margin=0.5, normalize_feature=True,
+                             add_absolute=True, absolute_loss_weight=1.0,
+                             ap_value=0.8, an_value=0.4), margin=0.3,
+                   features=torch.from_numpy(rng.randn(8, 16)),
+                   logits=torch.from_numpy(rng.randn(8, 6) * 3),
+                   labels=torch.from_numpy(labels.astype(np.int64)))
+    programs = ["ragged", "batchnorm", "triplet"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        runs[dev] = launch_ranks(tmp_path / dev, programs, {
+            "bn": bn, "triplet": triplet, "device": dev})
+    for g, w in zip(runs["cuda"], runs["cpu"]):
+        for name in ("numpy", "tensor"):
+            for a, b in zip(g["ragged"][name], w["ragged"][name]):
+                np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(g["ragged"]["empty_shard"],
+                                      w["ragged"]["empty_shard"])
+        for name, case in w["batchnorm"].items():
+            for k, v in case.items():
+                torch.testing.assert_close(g["batchnorm"][name][k], v,
+                                           rtol=1e-9, atol=1e-12)
+        for k, v in w["triplet"].items():
+            torch.testing.assert_close(g["triplet"][k], v, rtol=1e-9,
+                                       atol=1e-12)

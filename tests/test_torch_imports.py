@@ -42,7 +42,8 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "optimizer", "optimizer.scheduler", "utils.checkpoint",
            "utils.config", "optimizer.adam", "models.convert_paddle",
            "convert_paddle", "create_data", "extract_features",
-           "infer_recognition", "utils.record", "data_utils.featurizer"]
+           "infer_recognition", "utils.record", "data_utils.featurizer",
+           "parallel", "parallel.mesh", "launch_multihost"]
 
 
 def test_importing_the_port_leaves_jax_out():

@@ -469,4 +469,4 @@ def test_command_line_modules(model, tmp_path, capsys):
     assert "diarization results:" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(["--help"])
-    assert "not ported yet" in capsys.readouterr().out
+    assert "--data_parallel" in capsys.readouterr().out

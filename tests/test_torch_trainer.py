@@ -4,8 +4,7 @@ with augmentation, the checkpoint layout and ``model.state`` keys of the
 JAX ``save_checkpoint``, resume (the step and the epoch go on),
 ``Predictor(device="cpu")`` serving ``best_model`` with the trainer's
 eval embeddings, the ``train`` / ``eval`` command lines, the options
-still deferred (each raises ``NotImplementedError``) and the ones that
-now run, and one train step of each of the 7 backbones (a finite loss, BN
+that were once deferred (each now runs), and one train step of each of the 7 backbones (a finite loss, BN
 statistics that move)."""
 
 import json
@@ -171,28 +170,31 @@ def test_train_and_eval_command_lines(lists, tmp_path):
     ("train_conf.checkpoint_format", "orbax"),
     ("optimizer_conf.optimizer_args.mu_dtype", "bfloat16")])
 def test_deferred_options_raise(lists, where, value):
-    """Data parallelism (``num_devices`` > 1, ``checkpoint_format: orbax``)
-    still raises; the Trainer builds with ``enable_remat`` and
-    ``mu_dtype`` (held against JAX in ``tests/test_torch_remat.py`` and
-    ``tests/test_torch_adam_moment.py``)."""
+    """No option is deferred any more: the Trainer builds with each.
+    ``num_devices`` 4 in one process trains on one device and
+    ``checkpoint_format: orbax`` writes DCP directories (both held at world
+    2 in ``tests/test_torch_parallel_train.py``); ``enable_remat`` and
+    ``mu_dtype`` are held against JAX in ``tests/test_torch_remat.py`` and
+    ``tests/test_torch_adam_moment.py``. An unknown format raises."""
     cfg = _cfg(lists, "TDNN")
     node = cfg
     *path, leaf = where.split(".")
     for k in path:
         node = node[k]
     node[leaf] = value
-    if where.startswith(("train_conf.num_devices",
-                         "train_conf.checkpoint_format")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(cfg, device="cpu")
-        return
     tr = Trainer(cfg, device="cpu")
     tr._setup_dataloader(is_train=True)
     tr._setup_model(tr.audio_featurizer.feature_dim, is_train=True)
     if leaf == "enable_remat":
         assert tr.remat
-    else:
+    elif leaf == "mu_dtype":
         assert isinstance(tr.optimizer, AdamLowPrecisionMoment)
+    elif leaf == "num_devices":
+        assert (tr.rank, tr.world) == (0, 1)
+    else:
+        node[leaf] = "safetensors"
+        with pytest.raises(ValueError, match="checkpoint_format"):
+            Trainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("call", ["extract_features", "export", "profiler"])

@@ -16,6 +16,7 @@ build and share one library.
 """
 
 import ctypes
+import fcntl
 import functools
 import glob
 import hashlib
@@ -75,31 +76,15 @@ def _kernel_library():
     out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
     so_path = os.path.join(out_dir, "libvpr_kernels.so")
     log_path = os.path.join(out_dir, "ptxas.log")
-    cached = os.path.exists(so_path)
+    os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    if not cached:
-        os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
-        nvcc = _nvcc()
-        with ThreadPoolExecutor(len(sources)) as pool:
-            procs = list(pool.map(lambda so: subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", so[1], so[0]],
-                capture_output=True, text=True), zip(sources, objs)))
-        logs = [proc.stdout + proc.stderr for proc in procs]
-        link = None
-        if all(proc.returncode == 0 for proc in procs):
-            link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
-                                  capture_output=True, text=True)
-            logs.append(link.stdout + link.stderr)
-        for obj in objs:
-            if os.path.exists(obj):
-                os.remove(obj)
-        if link is None or link.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
-        with open(log_path, "w", encoding="utf-8") as f:
-            f.write("".join(logs))
-        os.replace(tmp, so_path)
+    # one build at a time across processes (the ranks of a data-parallel
+    # run start together); a waiter finds the library built
+    with open(os.path.join(out_dir, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        cached = os.path.exists(so_path)
+        if not cached:
+            _build_library(sources, so_path, log_path)
     seconds = time.perf_counter() - t0
     ptxas = ""
     if os.path.exists(log_path):
@@ -107,6 +92,31 @@ def _kernel_library():
             ptxas = f.read()
     return KernelLibrary(ctypes.CDLL(so_path), so_path, seconds, ptxas,
                          cached)
+
+
+def _build_library(sources, so_path, log_path):
+    """nvcc every source at once, link, and move the library into place."""
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    nvcc = _nvcc()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        procs = list(pool.map(lambda so: subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", so[1], so[0]],
+            capture_output=True, text=True), zip(sources, objs)))
+    logs = [proc.stdout + proc.stderr for proc in procs]
+    link = None
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+    with open(log_path, "w", encoding="utf-8") as f:
+        f.write("".join(logs))
+    os.replace(tmp, so_path)
 
 
 def check(err, name):

@@ -5,6 +5,10 @@ Trainer (counterpart of the root ``eval.py``; ``--device`` in place of
 Run: python -m voiceprintrecognition_paddlepaddle_torch.eval
 --configs=configs/cam++.yml --resume_model=models/CAMPPlus_Fbank/best_model/
 [--device=cuda]
+
+Under ``launch_multihost --nproc N`` the evaluation is collective: each
+rank embeds its shard of the lists on its own device and every rank
+reports the EER of the whole lists; rank 0 logs it and saves the plot.
 """
 
 import argparse
@@ -34,9 +38,10 @@ def main(argv=None):
     eer, min_dcf, threshold = trainer.evaluate(
         resume_model=args.resume_model,
         save_image_path=args.save_image_path or None)
-    logger.info(f"eval time: {int(time.time() - start)}s, "
-                f"threshold: {threshold:.2f}, EER: {eer:.5f}, "
-                f"MinDCF: {min_dcf:.5f}")
+    if trainer.rank == 0:
+        logger.info(f"eval time: {int(time.time() - start)}s, "
+                    f"threshold: {threshold:.2f}, EER: {eer:.5f}, "
+                    f"MinDCF: {min_dcf:.5f}")
     return eer, min_dcf, threshold
 
 

@@ -11,7 +11,12 @@ margin=None)`` on the classifier's ``{"features", "logits"}``:
   the optimizer updates it with the model (JAX ``loss_params``);
 - the triplet loss mines hard pairs with masked min / max (``amin`` /
   ``amax`` split the gradient between ties, as ``jnp.min`` / ``jnp.max``
-  do).
+  do), over the global batch in a process group of more than one rank, as
+  JAX mines over its global array: every rank gathers the features (with
+  autograd) and the labels of all ranks. The other six losses are
+  per-sample means, whose global mean is DDP's average of the ranks'
+  gradients because every rank holds the same batch size (the trainer's
+  samplers drop the last partial batch; the triplet gather checks it).
 """
 
 import math
@@ -19,6 +24,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import (all_gather_stacked, all_gather_with_grad,
+                             is_distributed)
 
 __all__ = ["AAMLoss", "AMLoss", "ARMLoss", "CELoss", "SphereFace2",
            "SubCenterLoss", "TripletAngularMarginLoss"]
@@ -211,6 +219,9 @@ class TripletAngularMarginLoss(_Loss):
     def forward(self, outputs, labels, margin=None):
         features = _wide(outputs["features"])
         loss_ce = _ce(outputs["logits"], labels, self.label_smoothing)
+        if is_distributed():
+            features = all_gather_with_grad(features)
+            labels = all_gather_stacked(labels).flatten()
         if self.normalize_feature:
             features = features / torch.clamp(
                 torch.linalg.norm(features, dim=-1, keepdim=True), min=1e-12)

@@ -289,7 +289,9 @@ def _launch(packed, feats, events=None):
                    packed["aff"].data_ptr(), ctypes.cast(events, ctypes.c_void_p),
                    b, t, t_pad, (ctypes.c_int * len(grids))(*grids))
     from .._build import check
-    check(fn(p, torch.cuda.current_stream(dev).cuda_stream), "vpr_fcm")
+    # the kernel launches on the current device: make it the tensor's
+    with torch.cuda.device(dev):
+        check(fn(p, torch.cuda.current_stream(dev).cuda_stream), "vpr_fcm")
     fcm_fused.launches += 1
     return out
 

@@ -5,7 +5,9 @@ run NCHW ``(B, C, F, T)``. Attribute names follow the flax parameter tree
 (``Conv_0``, ``BatchNorm_0``, ``SamePadConv1d_0``, ...) so that
 ``convert.jax_to_torch_state`` is a plain tree walk. Every BatchNorm is
 ``BatchNorm``: the reference's eps 1e-5, and in training flax's
-``nn.BatchNorm(momentum=0.9)`` update of the running statistics.
+``nn.BatchNorm(momentum=0.9)`` update of the running statistics, over the
+global batch when a process group of more than one rank is up (what the
+JAX mesh computes).
 """
 
 import threading
@@ -14,6 +16,8 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import all_gather_stacked, all_reduce_sum, is_distributed
 
 __all__ = ["BN_EPS", "BatchNorm", "frozen_running_stats", "bn_affine",
            "length_to_mask",
@@ -59,9 +63,15 @@ class BatchNorm(nn.BatchNorm1d):
         if x.dim() < 2:
             raise ValueError(f"expected an NC* input, got {x.dim()}-D")
 
+    def _factor(self):
+        return (self.momentum if self.momentum is not None
+                else 1.0 / float(self.num_batches_tracked))
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if is_distributed():
+            return self._forward_global(x)
         if getattr(_frozen, "depth", 0):
             # the same op on copies of the statistics: the recomputation
             # saves what the forward saved, and the update is thrown away
@@ -69,8 +79,7 @@ class BatchNorm(nn.BatchNorm1d):
                                 self.running_var.clone(), self.weight,
                                 self.bias, True, 0.0, self.eps)
         self.num_batches_tracked.add_(1)
-        factor = (self.momentum if self.momentum is not None
-                  else 1.0 / float(self.num_batches_tracked))
+        factor = self._factor()
         # torch's update lands in a copy (autograd keeps the tensors the
         # op was given, so the buffer itself must not change after it)
         var = self.running_var.clone()
@@ -83,6 +92,79 @@ class BatchNorm(nn.BatchNorm1d):
             self.running_var.copy_(
                 var - (var - (1.0 - factor) * self.running_var) / n)
         return y
+
+    def _forward_global(self, x):
+        """Train mode in a process group of more than one rank: normalize
+        by the statistics of the global batch (``_GlobalBatchNorm``) and
+        move the running ones towards its mean and biased variance. Every
+        rank runs every call: the recomputed forward of
+        ``torch.utils.checkpoint`` (``frozen_running_stats``) gathers
+        again, which is right only because each rank recomputes the same
+        layers in the same order in its backward."""
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps)
+        if not getattr(_frozen, "depth", 0):
+            self.num_batches_tracked.add_(1)
+            factor = self._factor()
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                        factor)
+                self.running_var.lerp_(var.to(self.running_var.dtype),
+                                       factor)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch normalization of ``x`` (NC*) by the per-channel mean and
+    biased variance over every rank's batch.
+
+    Forward: each rank's count, mean and biased variance, gathered in one
+    all-gather and combined as Chan et al. combine partial moments (no
+    sum of squares to cancel). Backward: one all-reduce of the two
+    per-channel sums the input gradient needs; the weight and bias
+    gradients stay this rank's own, and DDP's average of them over the
+    ranks is the global batch's gradient, as JAX takes it over the
+    mesh. The arithmetic is in float32 at least (float64 stays)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        c = xf.shape[1]
+        dims = [0] + list(range(2, xf.ndim))
+        shape = (1, c) + (1,) * (xf.ndim - 2)
+        var_l, mean_l = torch.var_mean(xf, dim=dims, correction=0)
+        n_l = xf.new_full((1,), xf.numel() // c)
+        g = all_gather_stacked(torch.cat([n_l, mean_l, var_l]))
+        n_r, mean_r, var_r = g[:, :1], g[:, 1:c + 1], g[:, c + 1:]
+        n = n_r.sum()
+        mean = (n_r * mean_r).sum(0) / n
+        var = (n_r * (var_r + (mean_r - mean) ** 2)).sum(0) / n
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        y = (xhat * weight.to(xf.dtype).view(shape)
+             + bias.to(xf.dtype).view(shape))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n = n
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        dyf = dy.to(xf.dtype)
+        c = xf.shape[1]
+        dims = [0] + list(range(2, xf.ndim))
+        shape = (1, c) + (1,) * (xf.ndim - 2)
+        xhat = (xf - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        both = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        g_dy, g_dy_xhat = both[:c] / ctx.n, both[c:] / ctx.n
+        dx = ((dyf - g_dy.view(shape) - xhat * g_dy_xhat.view(shape))
+              * (weight.to(xf.dtype) * invstd).view(shape))
+        return (dx.to(x.dtype), sum_dy_xhat.to(weight.dtype),
+                sum_dy.to(weight.dtype), None)
 
 
 def bn_affine(bn):

@@ -403,8 +403,10 @@ def trunk_stats(packed, fcm_out, tvalids=None, *, cluster=None):
             "out_aff")),
         b, t_raw, t_valid, t16, cs, rows)
     from .._build import check
-    check(_entries()[0](p, torch.cuda.current_stream(dev).cuda_stream),
-          "vpr_campplus_trunk")
+    # the kernel launches on the current device: make it the tensor's
+    with torch.cuda.device(dev):
+        check(_entries()[0](p, torch.cuda.current_stream(dev).cuda_stream),
+              "vpr_campplus_trunk")
     trunk_stats.launches += 1
     trunk_stats.cluster_launches[cs] = trunk_stats.cluster_launches.get(cs, 0) + 1
     return _unbias(out, tv)

@@ -162,11 +162,13 @@ def fbank_fused(waves, sr=16000, n_mels=80):
     out = torch.empty((b, t, n_mels), dtype=torch.float32,
                       device=waves.device)
     from .._build import check
-    err = _entry()(waves.data_ptr(), tables.window.data_ptr(),
-                   tables.twiddles.data_ptr(), tables.mel_packed.data_ptr(),
-                   tables.mel_range.data_ptr(), out.data_ptr(), b, length, t,
-                   n_mels, tables.mel_packed.shape[1],
-                   torch.cuda.current_stream(waves.device).cuda_stream)
+    # the kernel launches on the current device: make it the tensor's
+    with torch.cuda.device(waves.device):
+        err = _entry()(waves.data_ptr(), tables.window.data_ptr(),
+                       tables.twiddles.data_ptr(), tables.mel_packed.data_ptr(),
+                       tables.mel_range.data_ptr(), out.data_ptr(), b, length,
+                       t, n_mels, tables.mel_packed.shape[1],
+                       torch.cuda.current_stream(waves.device).cuda_stream)
     check(err, "vpr_fbank")
     fbank_fused.launches += 1
     return out

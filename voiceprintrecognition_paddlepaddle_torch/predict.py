@@ -33,13 +33,29 @@ TF32, matmuls do not). With Fbank dither on, the plain path draws its
 noise from a generator seeded 0 for every batch, as JAX ``_embed_impl``
 uses a fixed key, so inference stays deterministic.
 
+``Predictor(data_parallel=True)`` splits each chunk of at least as many
+clips as devices over every visible CUDA device (or over ``devices``, a
+list that may name one device twice), as the JAX ``Predictor`` shards over
+its local mesh (``predict.py:340-380``): the chunk pads with zero clips of
+ratio 1 to the device count times a power of two, each device embeds its
+equal share with a replica of the model and its own packed kernel weights,
+under ``torch.cuda.device`` on that device's current stream, and the
+padding rows are dropped. Smaller chunks run on the first device; with
+one device the path is the plain one.
+
+A checkpoint directory's ``model.dcp/`` (``torch.distributed.checkpoint``,
+``train_conf.checkpoint_format: orbax``) is read before its ``model.pt``,
+as JAX reads ``model.orbax/`` before ``model.msgpack``.
+
 The audio database keeps the JAX package's pickle ``audio_indexes.bin``
 format (users_name / faces_feature / users_image_path).
 """
 
+import copy
 import os
 import pickle
 import shutil
+from contextlib import nullcontext
 from io import BufferedReader
 
 import numpy as np
@@ -52,6 +68,7 @@ from .models.campplus import CAMPPlus
 from .models.trunk_kernel import make_campplus_masked_embed_fn
 from .ops.audio import AudioSegment
 from .ops.features import AudioFeaturizer
+from .utils.checkpoint import find_weights, read_weights
 from .utils.config import load_yaml
 from .utils.logger import logger
 from .utils.utils import dict_to_object
@@ -87,11 +104,20 @@ def _load_configs(configs):
 class Predictor:
     def __init__(self, configs, threshold=0.6, audio_db_path=None,
                  model_path="models/CAMPPlus_Fbank/best_model/model.pt",
-                 device="cuda"):
-        """``model_path``: a torch ``state_dict`` file (or a directory
-        holding ``model.pt``) written from ``models.convert``.
+                 device="cuda", data_parallel=False, devices=None):
+        """``model_path``: a torch ``state_dict`` file, a DCP directory, or
+        a checkpoint directory holding ``model.dcp/`` or ``model.pt``.
         ``device``: ``"cuda"`` (default) raises when no CUDA device is
-        present; pass ``"cpu"`` for the plain PyTorch versions."""
+        present; pass ``"cpu"`` for the plain PyTorch versions.
+        ``data_parallel``: split each chunk over ``devices`` (default:
+        every visible CUDA device, or ``device`` alone on the CPU); the
+        first of them is the one device of the plain path."""
+        if (data_parallel and not devices
+                and torch.device(device).type == "cuda"):
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        if data_parallel and devices:
+            device = devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Predictor(device='cuda') needs a CUDA device; "
@@ -103,22 +129,33 @@ class Predictor:
             method_args=self.configs.preprocess_conf.get("method_args", {}))
         self.model = build_model(self._audio_featurizer.feature_dim,
                                  self.configs)
-        if os.path.isdir(model_path):
-            model_path = os.path.join(model_path, "model.pt")
+        if (os.path.isdir(model_path) and not os.path.exists(
+                os.path.join(model_path, ".metadata"))):
+            model_path = find_weights(model_path)
         if not os.path.exists(model_path):
             raise FileNotFoundError(f"model not found: {model_path}")
-        state = torch.load(model_path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(state)
+        self.model.load_state_dict(read_weights(model_path))
         self.model.to(self.device).eval()
         logger.info(f"loaded model weights: {model_path}")
-        self._embed = None
-        if campplus_kernel_path_applies(self.model, self._audio_featurizer):
-            self._embed = make_campplus_masked_embed_fn(
-                self.model, self._audio_featurizer)
-            if self.device.type == "cuda":
-                # build and load the kernels now, not in a first request
-                from ._build import kernel_library
-                kernel_library()
+        kernel_path = campplus_kernel_path_applies(self.model,
+                                                   self._audio_featurizer)
+        # (device, model, kernel-path embed or None) per replica
+        self._replicas = []
+        for i, dev in enumerate([self.device] + [
+                torch.device(d) for d in (devices or [])[1:]]):
+            model = self.model if i == 0 else copy.deepcopy(self.model).to(dev)
+            embed = (make_campplus_masked_embed_fn(model,
+                                                   self._audio_featurizer)
+                     if kernel_path else None)
+            self._replicas.append((dev, model, embed))
+        if len(self._replicas) > 1:
+            logger.info(f"data-parallel serving over "
+                        f"{[str(d) for d, _, _ in self._replicas]}")
+        self._embed = self._replicas[0][2]
+        if kernel_path and self.device.type == "cuda":
+            # build and load the kernels now, not in a first request
+            from ._build import kernel_library
+            kernel_library()
 
         # voiceprint database state (reference ``predict.py:69-86``)
         self.audio_feature = None
@@ -288,46 +325,74 @@ class Predictor:
         """Batched embeddings: each chunk pads to its bucket length and
         carries per-utterance length ratios. A configuration off the kernel
         path, and chunks whose bucket is longer than
-        ``MAX_KERNEL_BUCKET_SAMPLES``, run the plain model."""
+        ``MAX_KERNEL_BUCKET_SAMPLES``, run the plain model. With
+        ``data_parallel``, a chunk of at least as many clips as devices is
+        split over them (the module docstring)."""
         samples = []
         for audio in audios_data:
             if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
                 samples.append(audio)
             else:
                 samples.append(self._load_audio(audio, sample_rate).samples)
+        n_dev = len(self._replicas)
         features = []
         for i in range(0, len(samples), batch_size):
             chunk = samples[i:i + batch_size]
             max_len = bucket_length(max(len(s) for s in chunk))
-            waves = np.zeros((len(chunk), max_len), np.float32)
-            ratios = np.ones((len(chunk),), np.float32)
+            # data parallel: n_dev x a power of two rows, as JAX pads
+            use_dp = n_dev > 1 and len(chunk) >= n_dev
+            b_pad = n_dev if use_dp else len(chunk)
+            while b_pad < len(chunk):
+                b_pad *= 2
+            waves = np.zeros((b_pad, max_len), np.float32)
+            ratios = np.ones((b_pad,), np.float32)
             for j, s in enumerate(chunk):
                 waves[j, :len(s)] = s
                 ratios[j] = len(s) / max_len
-            waves_t = torch.from_numpy(waves).to(self.device)
-            kernel = (self._embed is not None
-                      and max_len <= MAX_KERNEL_BUCKET_SAMPLES)
-            if kernel:
-                exact = bool(np.all(ratios == 1.0))
-                emb = self._embed(waves_t, None if exact else ratios)
+            if use_dp:
+                share = b_pad // n_dev
+                # launch every share first, then copy back: the devices
+                # work at once
+                embs = [self._embed_on(r, waves[r * share:(r + 1) * share],
+                                       ratios[r * share:(r + 1) * share])
+                        for r in range(n_dev)]
+                emb = torch.cat([e.cpu() for e in embs])[:len(chunk)]
             else:
-                emb = self._embed_plain(waves_t, ratios)
-            features.append(emb.cpu().numpy())
+                emb = self._embed_on(0, waves, ratios).cpu()
+            features.append(emb.numpy())
         return np.concatenate(features, axis=0)
 
+    def _embed_on(self, replica, waves, ratios):
+        """Embeddings of the numpy batch ``waves`` on the device of
+        ``replica`` (a tensor there): the kernel path for buckets up to
+        ``MAX_KERNEL_BUCKET_SAMPLES`` where it applies, else the plain
+        model."""
+        dev, model, embed = self._replicas[replica]
+        if replica == 0:
+            embed = self._embed
+        guard = torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
+        with guard:
+            waves_t = torch.from_numpy(waves).to(dev)
+            if (embed is not None
+                    and waves.shape[1] <= MAX_KERNEL_BUCKET_SAMPLES):
+                exact = bool(np.all(ratios == 1.0))
+                return embed(waves_t, None if exact else ratios)
+            return self._embed_plain(waves_t, ratios, model)
+
     @torch.no_grad()
-    def _embed_plain(self, waves, ratios):
-        """The plain model on a padded batch (JAX ``_embed_impl``): masked
-        CMN, then ``model.forward`` with length-aware pooling. Dither, when
-        on, comes from a generator seeded 0 (JAX's fixed key)."""
+    def _embed_plain(self, waves, ratios, model=None):
+        """The plain model (``self.model`` unless given) on a padded batch
+        on its device (JAX ``_embed_impl``): masked CMN, then
+        ``model.forward`` with length-aware pooling. Dither, when on, comes
+        from a generator seeded 0 (JAX's fixed key)."""
         rng = None
         if self._audio_featurizer.dither > 0:
             rng = torch.Generator(device=waves.device)
             rng.manual_seed(0)
         feats = self._audio_featurizer(waves, input_lens_ratio=ratios,
                                        rng=rng)
-        lengths = torch.from_numpy(ratios).to(self.device)
-        return self.model(feats, lengths=lengths).float()
+        lengths = torch.from_numpy(ratios).to(waves.device)
+        return (model or self.model)(feats, lengths=lengths).float()
 
     def contrast(self, audio_data1, audio_data2):
         """1:1 cosine similarity."""

@@ -24,7 +24,9 @@ Run: python -m voiceprintrecognition_paddlepaddle_torch.serve
 --configs=configs/cam++.yml --model_path=<model.pt> [--device=cuda]
 [--port=8000]. ``--configs`` takes a YAML path and needs PyYAML; code
 that has no PyYAML builds ``make_handler(Predictor(<dict>, ...))`` in its
-own process. Data-parallel serving over several cards is not ported yet.
+own process. ``--data_parallel`` splits each embedding batch over every
+visible CUDA device (``Predictor(data_parallel=True)``), as the JAX
+``tools/serve.py --data_parallel``.
 """
 
 import argparse
@@ -287,6 +289,8 @@ def main(argv=None):
     add_arg("port",          int,   8000, "port")
     add_arg("device",        str,   "cuda", "torch device: cuda or cpu "
             "(cuda raises without a CUDA device)")
+    add_arg("data_parallel", bool,  False, "split embedding batches over "
+            "every visible CUDA device")
     add_arg("dynamic_batch_ms", float, 0.0, "aggregate concurrent embed "
             "requests for up to this many ms into one device batch "
             "(0 disables)")
@@ -298,7 +302,8 @@ def main(argv=None):
 
     predictor = Predictor(configs=args.configs, model_path=args.model_path,
                           audio_db_path=args.audio_db_path,
-                          threshold=args.threshold, device=args.device)
+                          threshold=args.threshold, device=args.device,
+                          data_parallel=args.data_parallel)
     if args.warmup_seconds.strip():
         warmup(predictor, [float(s) for s in args.warmup_seconds.split(",")])
         print("warmup done", flush=True)

@@ -3,6 +3,10 @@ of the root ``train.py``; ``--device`` in place of ``--use_gpu``).
 
 Run: python -m voiceprintrecognition_paddlepaddle_torch.train
 --configs=configs/cam++.yml [--device=cuda] [--data_augment_configs=...]
+
+Data parallel, one rank per card:
+python -m voiceprintrecognition_paddlepaddle_torch.launch_multihost
+--nproc 2 -- python -m voiceprintrecognition_paddlepaddle_torch.train ...
 """
 
 import argparse

@@ -45,9 +45,35 @@ per-utterance ``.npy`` features; ``export`` writes the inference bundle,
 with ``model.pt2`` from ``torch.export`` of the plain wav -> embedding
 forward.
 
-Deferred (``NotImplementedError`` naming the ROADMAP item): more than one
-device (``train_conf.num_devices``) and ``train_conf.checkpoint_format:
-orbax``.
+Data parallelism (JAX ``trainer.py`` over ``parallel/mesh.py``) is one
+process per device, started by ``launch_multihost`` (or a cluster runner)
+and joined by ``parallel.maybe_initialize_distributed`` in ``__init__``:
+
+- each rank computes on its own device (``parallel.rank_device``) and
+  draws its augmentation from a generator seeded ``1000 + rank`` (JAX
+  ``PRNGKey(1000 + rank)``); the initial weights come from seed 1000 on
+  every rank;
+- the samplers are rank-sharded (``num_replicas=world, rank=rank``); the
+  sampler's ``batch_size`` is per rank, and a train sampler must drop the
+  last partial batch, so that every rank holds the same batch size;
+- the backbone, head and loss run as one module under
+  ``DistributedDataParallel`` whenever a process group is up, one rank
+  included (``broadcast_buffers=False``: the BatchNorm
+  statistics are those of the global batch on every rank,
+  ``layers.BatchNorm``), with ``no_sync`` on the microbatches before an
+  accumulated update;
+- logs, TensorBoard, the profiler and checkpoints are rank 0's; the
+  logged loss and accuracy are means over the ranks;
+- ``evaluate()`` is collective: each rank embeds its shard of the enroll
+  and trials lists, and ``parallel.allgather_ragged`` joins them in rank
+  order on every rank (also a rank that stopped early), so that every
+  rank reports the same EER.
+
+``train_conf.num_devices`` caps the devices as in JAX: a run of one
+process uses one device, and a run of several uses every rank (a cap that
+differs is logged and ignored). ``train_conf.checkpoint_format: orbax``
+writes ``torch.distributed.checkpoint`` directories
+(``utils/checkpoint.py``).
 """
 
 import json
@@ -58,6 +84,8 @@ from datetime import timedelta
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from .data_utils import (BatchSampler, DataLoader, PKSampler, SpeakerDataset,
@@ -75,42 +103,62 @@ from .ops.augment import DeviceAugmenter
 from .ops.features import AudioFeaturizer, apply_cmn_and_mask
 from .optimizer import (MarginScheduler, build_lr_scheduler, build_optimizer,
                         scheduled_step)
+from .parallel import (all_reduce_sum, allgather_ragged, local_process_info,
+                       maybe_initialize_distributed, rank_device)
 from .predict import (MAX_KERNEL_BUCKET_SAMPLES, _load_configs,
                       campplus_kernel_path_applies)
-from .utils.checkpoint import (AsyncSaver, load_checkpoint, load_pretrained,
+from .utils.checkpoint import (CHECKPOINT_FORMATS, AsyncSaver,
+                               load_checkpoint, load_pretrained,
                                save_checkpoint)
 from .utils.logger import logger
 from .utils.utils import dict_to_object, print_arguments
 
 __all__ = ["Trainer", "PPVectorTrainer"]
 
-# ROADMAP.md, queue 1: one entry per option still to port
-_DEFERRED = {
-    "num_devices": "data parallelism (DDP)",
-    "checkpoint_format": "data parallelism (DDP), with sharded checkpoints",
-}
 # the steps train(profiler_dir=...) traces: [start, stop)
 PROFILE_STEPS = (10, 20)
 
 
-def _deferred(what):
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet (ROADMAP.md, queue 1: "
-        f"{_DEFERRED[what]})")
+class _TrainNet(nn.Module):
+    """The backbone, the head and the loss of a train step as one module:
+    one DDP wrapper averages the gradients of all three (SphereFace2's
+    bias included). ``remat`` runs the backbone under
+    ``torch.utils.checkpoint``; the recomputation leaves the BN running
+    statistics as the forward left them."""
 
+    def __init__(self, model, classifier, criterion, remat):
+        super().__init__()
+        self.model = model
+        self.classifier = classifier
+        self.criterion = criterion
+        self.remat = remat
 
-def _rank():
-    dist = torch.distributed
-    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
-            else 0)
+    def forward(self, feats, lens, labels, margin):
+        if self.remat:
+            emb = checkpoint(
+                lambda f, r: self.model(f, lengths=r), feats, lens,
+                use_reentrant=False,
+                context_fn=lambda: (nullcontext(), frozen_running_stats()))
+        else:
+            emb = self.model(feats, lengths=lens)
+        outputs = self.classifier(emb)
+        loss = self.criterion(outputs, labels, margin=margin)
+        return loss, outputs["logits"]
 
 
 class Trainer:
     def __init__(self, configs, device="cuda", data_augment_configs=None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
             raise RuntimeError("Trainer(device='cuda') needs a CUDA device; "
                                "pass device='cpu' to run on the CPU")
+        # the process group of a data-parallel run (no-op without the
+        # launcher's variables), then this rank's device
+        maybe_initialize_distributed(device)
+        self.rank, self.world = local_process_info()
+        self.device = rank_device(device)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         if isinstance(configs, str):
             configs = _load_configs(configs)
             print_arguments(configs=configs)
@@ -124,11 +172,20 @@ class Trainer:
                                 title="augmentation configs")
         self.data_augment_configs = dict_to_object(data_augment_configs or {})
         train_conf = self.configs.get("train_conf", {})
-        if int(train_conf.get("num_devices", 0) or 0) > 1:
-            raise _deferred("num_devices")
-        if train_conf.get("checkpoint_format", "torch") not in ("torch",
-                                                                "msgpack"):
-            raise _deferred("checkpoint_format")
+        num_devices = int(train_conf.get("num_devices", 0) or 0)
+        if num_devices > 1 and self.world == 1:
+            logger.warning(
+                f"train_conf.num_devices {num_devices}: this run has one "
+                f"process, so it trains on one device ({self.device}); "
+                f"start {num_devices} ranks with launch_multihost --nproc "
+                f"{num_devices} for data parallelism")
+        elif num_devices and num_devices != self.world:
+            logger.warning(f"ignoring train_conf.num_devices {num_devices} "
+                           f"in a run of {self.world} ranks; using all ranks")
+        fmt = train_conf.get("checkpoint_format", "torch")
+        if fmt not in CHECKPOINT_FORMATS:
+            raise ValueError(f"unknown train_conf.checkpoint_format {fmt!r}; "
+                             f"one of {sorted(CHECKPOINT_FORMATS)}")
         self.amp = bool(train_conf.get("enable_amp", False))
         self.remat = bool(train_conf.get("enable_remat", False))
         self._profiler = self._profiler_dir = None
@@ -138,6 +195,8 @@ class Trainer:
         self.enroll_dataset = self.enroll_loader = None
         self.trials_dataset = self.trials_loader = None
         self.model = self.classifier = self.criterion = None
+        self._net = None        # _TrainNet; under DDP when a group is up
+        self._emb_dim = None
         self.optimizer = None
         self.param_names = []
         self.margin_scheduler = None
@@ -154,9 +213,10 @@ class Trainer:
         self._banks = None
         self.test_log_step = self.train_log_step = 0
         self.stop_train = self.stop_eval = False
-        # augmentation and dither draws: one generator on the train device
+        # augmentation and dither draws: one generator on the train device,
+        # seeded per rank
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(1000)
+        self._gen.manual_seed(1000 + self.rank)
 
     # ------------------------------------------------------------------
     # setup
@@ -176,6 +236,7 @@ class Trainer:
             int(dataset_args.get("max_duration", 3)
                 * dataset_args.get("sample_rate", 16000)))
         workers = loader_args.get("num_workers", 4)
+        shard = dict(num_replicas=self.world, rank=self.rank)
         if is_train:
             self.train_dataset = SpeakerDataset(
                 data_list_path=self.configs.dataset_conf.train_list,
@@ -183,14 +244,21 @@ class Trainer:
                 num_speakers=self.configs.model_conf.classifier.num_speakers,
                 mode="train", max_feature_len=max_feature_len,
                 **dataset_args)
+            if self.world > 1 and not sampler_args.get("drop_last", True):
+                raise ValueError(
+                    "dataset_conf.sampler.drop_last must be true in a "
+                    "data-parallel run: every rank must hold the same batch "
+                    "size for DDP's mean of the gradients to be the global "
+                    "batch's")
             if (self.configs.dataset_conf.get("is_use_pksampler", False)
                     or self._loss_name() == "TripletAngularMarginLoss"):
                 sampler = PKSampler(
                     self.train_dataset,
                     sample_per_id=self.configs.dataset_conf.get(
-                        "sample_per_id", 4), **sampler_args)
+                        "sample_per_id", 4), **shard, **sampler_args)
             else:
-                sampler = BatchSampler(self.train_dataset, **sampler_args)
+                sampler = BatchSampler(self.train_dataset, **shard,
+                                       **sampler_args)
             self.train_loader = DataLoader(self.train_dataset, sampler,
                                            self._train_collate,
                                            num_workers=workers)
@@ -206,8 +274,9 @@ class Trainer:
                 continue
             ds = SpeakerDataset(data_list_path=list_path, mode="eval",
                                 **eval_args)
+            # each rank embeds its shard; _embed_loader gathers them
             sampler = BatchSampler(ds, batch_size=eval_bs, shuffle=False,
-                                   drop_last=False)
+                                   drop_last=False, **shard)
             setattr(self, f"{attr}_dataset", ds)
             setattr(self, f"{attr}_loader",
                     DataLoader(ds, sampler, self._eval_collate,
@@ -239,6 +308,7 @@ class Trainer:
             with torch.no_grad():
                 emb_dim = self.model.eval()(
                     torch.zeros(2, t_probe, input_size)).shape[-1]
+            self._emb_dim = emb_dim
             if is_train:
                 num_class = self.configs.model_conf.classifier.num_speakers
                 speed_conf = self.data_augment_configs.get("speed") or {}
@@ -257,6 +327,7 @@ class Trainer:
             return
         self.classifier.to(self.device)
         self.criterion.to(self.device)
+        self._net = None        # wrapped at the first train step
         if self.configs.loss_conf.get("use_margin_scheduler", False):
             ms_args = dict(
                 increase_start_epoch=int(
@@ -352,30 +423,45 @@ class Trainer:
         """One microbatch already on the device; returns ``(loss, acc)``
         as device scalars (no host sync)."""
         feats = self.featurize(kind, data, lens)
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.amp):
-            if self.remat:
-                # activations recomputed in the backward; the recomputation
-                # leaves the BN running statistics as the forward left them
-                emb = checkpoint(
-                    lambda f, r: self.model(f, lengths=r), feats, lens,
-                    use_reentrant=False,
-                    context_fn=lambda: (nullcontext(), frozen_running_stats()))
-            else:
-                emb = self.model(feats, lengths=lens)
-            outputs = self.classifier(emb)
-            loss = self.criterion(outputs, labels, margin=self._margin())
-        (loss / self.accum_steps if self.accum_steps > 1 else loss).backward()
+        net = self._train_net()
+        # DDP all-reduces the gradients on the microbatch of an update only
+        final = (self.step + 1) % self.accum_steps == 0
+        sync = (net.no_sync() if isinstance(net, DistributedDataParallel)
+                and not final else nullcontext())
+        with sync:
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=self.amp):
+                loss, logits = net(feats, lens, labels, self._margin())
+            (loss / self.accum_steps if self.accum_steps > 1
+             else loss).backward()
         self.step += 1
         scheduled_step(self.optimizer, self.lr_schedule, self.step,
                        self.accum_steps)
         with torch.no_grad():
-            logits = outputs["logits"].detach()
+            logits = logits.detach()
             if self._loss_name() == "SubCenterLoss":
                 k = self.configs.loss_conf.get("loss_args", {}).get("K", 3)
                 logits = torch.amax(logits.reshape(logits.shape[0], -1, k), 2)
             acc = (torch.argmax(logits, dim=-1) == labels).float().mean()
         return loss.detach(), acc
+
+    def _train_net(self):
+        """The step's module: ``_TrainNet``, wrapped in DDP when a process
+        group is up (a run the launcher started, one rank too). Built at
+        the first step, so that the modules' dtype and weights are final
+        by then (DDP's buckets keep the dtype they were built with); DDP's
+        construction broadcasts rank 0's weights, and every rank takes its
+        first step together."""
+        if self._net is None:
+            net = _TrainNet(self.model, self.classifier, self.criterion,
+                            self.remat)
+            if torch.distributed.is_initialized():
+                ids = ([self.device.index] if self.device.type == "cuda"
+                       else None)
+                net = DistributedDataParallel(net, device_ids=ids,
+                                              broadcast_buffers=False)
+            self._net = net
+        return self._net
 
     def _to_device(self, arr):
         t = torch.from_numpy(arr)
@@ -393,10 +479,10 @@ class Trainer:
         (``PROFILE_STEPS``) with ``torch.profiler``, CUDA activity included
         on the card, and writes the trace there (a ``*.pt.trace.json`` that
         TensorBoard and Perfetto open), as JAX ``trainer.py:700-708``."""
-        self._profiler_dir = profiler_dir if _rank() == 0 else None
+        self._profiler_dir = profiler_dir if self.rank == 0 else None
         self.train_window_speeds = []
         writer = None
-        if log_dir:
+        if log_dir and self.rank == 0:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 writer = SummaryWriter(log_dir=log_dir)
@@ -420,12 +506,14 @@ class Trainer:
             # resume continues the (seed, epoch) sample stream
             self.train_loader.batch_sampler.set_epoch(last_epoch)
         logger.info(f"train data: {len(self.train_dataset)}, device: "
-                    f"{self.device}")
+                    f"{self.device} (rank {self.rank} of {self.world})")
         self.model.train()
         self.classifier.train()
         max_epoch = max_epochs or self.configs.train_conf.max_epoch
         self.max_step = len(self.train_loader) * max_epoch
         self.test_log_step = self.train_log_step = 0
+        if self.rank != 0:
+            save_model_path = ""            # checkpoints are rank 0's
         self._async_saver = (
             AsyncSaver() if (save_model_path and self.configs.train_conf.get(
                 "async_checkpoint", True)) else None)
@@ -439,6 +527,10 @@ class Trainer:
                 self._async_saver = None
             if writer is not None:
                 writer.close()
+        if self.world > 1:
+            # rank 0's checkpoints are on disk when train() returns on
+            # any rank (a resume that follows reads them)
+            torch.distributed.barrier()
 
     def _save(self, save_model_path, epoch_id, **kw):
         save_checkpoint(self.configs, self.train_state(), save_model_path,
@@ -454,7 +546,9 @@ class Trainer:
             self._train_epoch(epoch_id, max_epoch, writer, save_model_path)
             eval_ok = False
             if do_eval and not self.stop_eval:
-                logger.info("=" * 70)
+                # collective in a group of > 1: every rank evaluates
+                if self.rank == 0:
+                    logger.info("=" * 70)
                 try:
                     (self.eval_eer, self.eval_min_dcf,
                      self.eval_threshold) = self.evaluate()
@@ -464,7 +558,7 @@ class Trainer:
                     # not discard the epoch: log it and save the epoch
                     logger.exception("per-epoch evaluation failed; the epoch "
                                      "checkpoint is still saved below")
-            if eval_ok:
+            if eval_ok and self.rank == 0:
                 logger.info(
                     f"Test epoch: {epoch_id}, time/epoch: "
                     f"{timedelta(seconds=int(time.time() - start_epoch))}, "
@@ -506,7 +600,11 @@ class Trainer:
                                   for x in (data, labels, lens))
             self._profile_hook()
             loss, acc = self.train_step(kind, data, labels, lens)
-            if batch_id % log_interval == 0:
+            if batch_id % log_interval == 0 and self.world > 1:
+                # the global batch's means, as JAX's step reports them
+                loss, acc = all_reduce_sum(torch.stack([loss.float(),
+                                                        acc])) / self.world
+            if batch_id % log_interval == 0 and self.rank == 0:
                 self.train_loss, self.train_acc = float(loss), float(acc)
                 now = time.time()
                 step_sec = (now - last_log_time) / max(batch_id
@@ -593,6 +691,9 @@ class Trainer:
         return self.model(feats, lengths=lens).float()
 
     def _embed_loader(self, loader, fast):
+        """This rank's shard of ``loader`` embedded on its device, then every
+        rank's shard in rank order (``allgather_ragged``, called by every
+        rank, also one that stopped early; JAX ``trainer.py:763-840``)."""
         feats, labels = [], []
         for kind, data, y, lens in loader:
             if self.stop_eval:
@@ -605,12 +706,12 @@ class Trainer:
                 emb = self._embed_plain(kind, x, self._to_device(lens))
             feats.append(emb.float())
             labels.append(y)
-        emb_dim = feats[0].shape[1] if feats else 0
+        emb_dim = feats[0].shape[1] if feats else self._emb_dim
         feats = (torch.cat(feats) if feats else
                  torch.zeros((0, emb_dim), device=self.device))
         labels = (np.concatenate(labels).astype(np.int32) if labels
                   else np.zeros((0,), np.int32))
-        return feats, labels
+        return allgather_ragged(feats, labels)
 
     def evaluate(self, resume_model=None, save_image_path=None):
         """Returns ``(eer, min_dcf, threshold)``; the embeddings stay in
@@ -645,7 +746,7 @@ class Trainer:
         eer, threshold = compute_eer(fnr, fpr, scores)
         min_dcf = compute_dcf(fnr, fpr)
         eer, min_dcf, threshold = float(eer), float(min_dcf), float(threshold)
-        if save_image_path:
+        if save_image_path and self.rank == 0:
             self._plot(fnr, fpr, thresholds, threshold, save_image_path)
         return eer, min_dcf, threshold
 

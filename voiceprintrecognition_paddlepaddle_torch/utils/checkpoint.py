@@ -22,6 +22,17 @@ A checkpoint directory holds:
 The train state handed to ``save_checkpoint`` and returned by
 ``load_checkpoint`` is the dict of those five entries. The LR and margin
 schedules are functions of the counts and need no replay.
+
+``train_conf.checkpoint_format: orbax`` writes each of
+the three files as a ``torch.distributed.checkpoint`` directory
+(``model.dcp/``, ``classifier.dcp/``, ``optimizer.dcp/``) in place of the
+JAX package's ``<name>.orbax/``: DCP is PyTorch's sharded checkpoint
+format, as orbax is JAX's. Each directory is written under a temporary
+name and then renamed. Under data parallelism the state is replicated, so
+rank 0 writes it alone (``no_dist``), as JAX's orbax save runs on rank 0
+(``utils/checkpoint.py:109-141``). Every reader (``load_checkpoint``,
+``load_pretrained``, ``Predictor``) takes ``<name>.dcp/`` before
+``<name>.pt``, as JAX takes ``.orbax/`` before ``.msgpack``.
 """
 
 import json
@@ -36,11 +47,68 @@ from .. import __version__
 from .logger import logger
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_pretrained",
-           "AsyncSaver", "checkpoint_dir", "TRAIN_FILES"]
+           "AsyncSaver", "checkpoint_dir", "TRAIN_FILES", "CHECKPOINT_FORMATS",
+           "find_weights", "read_weights"]
 
 # file -> the train-state entries it holds (model.pt: the bare backbone)
 TRAIN_FILES = {"model.pt": None, "classifier.pt": ("classifier", "loss"),
                "optimizer.pt": ("optimizer", "step")}
+# train_conf.checkpoint_format -> the suffix of each file's stem; "msgpack"
+# (the JAX default) is the torch file, "orbax" the DCP directory
+CHECKPOINT_FORMATS = {"torch": ".pt", "msgpack": ".pt", "orbax": ".dcp"}
+
+
+def _save_dcp(obj, path):
+    """Write ``obj`` (a state dict, nested dicts of tensors and values) as
+    a DCP directory at ``path``: into a temporary sibling, then renamed
+    over ``path``. One process writes it (``no_dist``)."""
+    import torch.distributed.checkpoint as dcp
+
+    tmp = f"{path}.{os.getpid()}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    dcp.save(obj, storage_writer=dcp.FileSystemWriter(tmp), no_dist=True)
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
+
+
+def _load_dcp(path):
+    """The whole state a DCP directory holds, on the CPU, with no template
+    (DCP's own reader for a format conversion, as ``dcp_to_torch_save``
+    reads). Integer keys come back as strings; ``_optimizer_keys`` turns an
+    optimizer's state keys back."""
+    from torch.distributed.checkpoint import FileSystemReader
+    from torch.distributed.checkpoint.format_utils import \
+        _EmptyStateDictLoadPlanner
+    from torch.distributed.checkpoint.state_dict_loader import \
+        _load_state_dict
+
+    out = {}
+    _load_state_dict(out, storage_reader=FileSystemReader(path),
+                     planner=_EmptyStateDictLoadPlanner(), no_dist=True)
+    return out
+
+
+def _optimizer_keys(opt):
+    """An optimizer state dict read from DCP with its per-parameter state
+    under the integer keys ``torch.optim`` indexes it by."""
+    opt = dict(opt)
+    opt["state"] = {int(k): v for k, v in opt.get("state", {}).items()}
+    return opt
+
+
+def find_weights(directory, name="model"):
+    """``<directory>/<name>.dcp`` when that directory exists, else
+    ``<directory>/<name>.pt`` (which may not exist)."""
+    dcp_dir = os.path.join(directory, name + ".dcp")
+    return dcp_dir if os.path.isdir(dcp_dir) else os.path.join(
+        directory, name + ".pt")
+
+
+def read_weights(path):
+    """A state saved by this module: a ``.pt`` file or a DCP directory."""
+    if os.path.isdir(path):
+        return _load_dcp(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 class AsyncSaver:
@@ -116,9 +184,16 @@ def save_checkpoint(configs, state, save_model_path, epoch_id, eer=None,
     The host snapshot is taken here; with ``async_saver`` the writes run
     in its thread. ``completed_epoch`` overrides the ``last_epoch``
     recorded in ``model.state``: a mid-epoch save passes ``epoch_id - 1``
-    so that a resume replays the interrupted epoch."""
+    so that a resume replays the interrupted epoch. The format is
+    ``train_conf.checkpoint_format`` (a key of ``CHECKPOINT_FORMATS``,
+    by default ``"torch"``)."""
     tag = "best_model" if best_model else f"epoch_{epoch_id}"
     model_path = checkpoint_dir(configs, save_model_path, tag)
+    fmt = configs.get("train_conf", {}).get("checkpoint_format", "torch")
+    if fmt not in CHECKPOINT_FORMATS:
+        raise ValueError(f"unknown checkpoint_format {fmt!r}; one of "
+                         f"{sorted(CHECKPOINT_FORMATS)}")
+    suffix = CHECKPOINT_FORMATS[fmt]
     snap = _to_cpu(state)
     data = {"last_epoch": int(epoch_id if completed_epoch is None
                               else completed_epoch),
@@ -138,7 +213,11 @@ def save_checkpoint(configs, state, save_model_path, epoch_id, eer=None,
         os.makedirs(model_path, exist_ok=True)
         for name, keys in TRAIN_FILES.items():
             obj = snap["model"] if keys is None else {k: snap[k] for k in keys}
-            torch.save(obj, os.path.join(model_path, name))
+            path = os.path.join(model_path, name[:-len(".pt")] + suffix)
+            if suffix == ".dcp":
+                _save_dcp(obj, path)
+            else:
+                torch.save(obj, path)
         with open(os.path.join(model_path, "model.state"), "w",
                   encoding="utf-8") as f:
             json.dump(data, f, indent=4, ensure_ascii=False)
@@ -162,12 +241,14 @@ def save_checkpoint(configs, state, save_model_path, epoch_id, eer=None,
 def _read_state(model_path):
     state = {}
     for name, keys in TRAIN_FILES.items():
-        obj = torch.load(os.path.join(model_path, name), map_location="cpu",
-                         weights_only=True)
+        obj = read_weights(find_weights(model_path, name[:-len(".pt")]))
         if keys is None:
             state["model"] = obj
         else:
-            state.update({k: obj[k] for k in keys})
+            # DCP keeps no empty dict: a loss without parameters has none
+            state.update({k: obj.get(k, {}) for k in keys})
+    state["optimizer"] = _optimizer_keys(state["optimizer"])
+    state["step"] = int(state["step"])
     return state
 
 
@@ -180,7 +261,7 @@ def load_checkpoint(configs, apply_state, save_model_path, resume_model=None):
     last_epoch, best_eer = 0, 1.0
     model_path = resume_model or checkpoint_dir(configs, save_model_path,
                                                 "last_model")
-    if not all(os.path.exists(os.path.join(model_path, n))
+    if not all(os.path.exists(find_weights(model_path, n[:-len(".pt")]))
                for n in TRAIN_FILES):
         if resume_model is not None:
             raise FileNotFoundError(f"checkpoint not found: {model_path}")
@@ -237,23 +318,23 @@ def load_pretrained(modules, pretrained_model):
     """Shape-filtered partial load (reference ``checkpoint.py``
     load_pretrained): ``modules`` maps "model" / "classifier" / "loss" to
     modules; ``pretrained_model`` is a checkpoint directory (its
-    ``model.pt``, and ``classifier.pt`` when there is one) or a
-    ``model.pt`` file. Missing or shape-mismatched tensors are skipped with
-    a warning. Returns the number of tensors loaded."""
+    ``model.dcp/`` or ``model.pt``, and ``classifier.dcp/`` or
+    ``classifier.pt`` when there is one), a ``model.pt`` file or a DCP
+    directory. Missing or shape-mismatched tensors are skipped with a
+    warning. Returns the number of tensors loaded."""
     if pretrained_model is None:
         return 0
-    if os.path.isdir(pretrained_model):
+    directory = None
+    if (os.path.isdir(pretrained_model) and not os.path.exists(
+            os.path.join(pretrained_model, ".metadata"))):
         directory = pretrained_model
-        pretrained_model = os.path.join(pretrained_model, "model.pt")
-    else:
-        directory = None
+        pretrained_model = find_weights(directory)
     assert os.path.exists(pretrained_model), \
         f"{pretrained_model} does not exist!"
-    loaded = {"model": torch.load(pretrained_model, map_location="cpu",
-                                  weights_only=True)}
-    head = directory and os.path.join(directory, "classifier.pt")
+    loaded = {"model": read_weights(pretrained_model)}
+    head = directory and find_weights(directory, "classifier")
     if head and os.path.exists(head):
-        loaded.update(torch.load(head, map_location="cpu", weights_only=True))
+        loaded.update(read_weights(head))
     merged = 0
     for name, module in modules.items():
         if module is not None and name in loaded:
