@@ -106,6 +106,29 @@ Phases (any failure raises and the script exits non-zero):
             Predictor(data_parallel=True, devices=[cuda:0, cuda:0]) holds
             11 clips of 1-8 s and one of 16 s against one device (cos >=
             0.9999); the step ms of both, the collectives timed alone
+13. last    the last modules, on the stock CAM++ (192-d) trained on the
+            card by the port's Trainer on 4 tone speakers x 4 clips of
+            1.2 s (tests/test_predictor.py's diarization recipe: 40
+            epochs, lr 0.05, seed 7): a 6-turn 3-speaker conversation
+            diarized with speaker_num=3 through the kernel path (fbank
+            and trunk kernels) and through the fp32 plain model
+            (kaldi.fbank and the eager CAM++, no kernel launched), each
+            held to 3 speakers, DER < 0.20 and confusion < 0.05 after an
+            RTTM round trip; the chunk embeddings as served against the
+            plain version of the same padded batch (cos >= 0.9999) and,
+            at exact length, the kernel path against the fp32 model (cos
+            >= 0.999), the cosines to the fp32 model at exact length and
+            to the fp32 Predictor printed; the RTTM flow
+            (eval_speaker_diarization.infer_data and compute_metrics as
+            child processes) over two conversations with their own
+            audio_db, DER < 0.20 with each turn named; eval_from_paddle
+            (a child process) on the trained weights written as a
+            .pdparams (converted back bit-equal) over 8 tone speakers'
+            clips of 3-20 s (the three kernels) equal to an in-process
+            Trainer.evaluate within 1e-6, --predict to
+            Predictor.contrast within 1e-5; the GUI actions (contrast
+            verdicts, register and recognise, the streaming window, the
+            diarization action); the wall time of each step
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel. ``chip_smoke.py --phase12-rank
@@ -1609,6 +1632,15 @@ def train_phase(dev, card):
 PORT = "voiceprintrecognition_paddlepaddle_torch"
 
 
+def paddle_shape(kind, f):
+    """The paddle shape of a converter spec entry of ``kind`` whose flax
+    leaf has the shape ``f``."""
+    return {"conv1d_w": lambda: (f[2], f[1], f[0]),
+            "conv2d_w": lambda: (f[3], f[2], f[0], f[1]),
+            "conv1d_as_dense_w": lambda: (f[1], f[0], 1)}.get(
+        kind, lambda: tuple(f))()
+
+
 def synth_pdparams(model, model_args, seed):
     """A reference paddle ``state_dict`` (numpy, ``0.``-prefixed keys) for
     the CAM++ ``model`` (``CAMPPlus(80, **model_args)``): every key of the
@@ -1624,11 +1656,7 @@ def synth_pdparams(model, model_args, seed):
         node = flax_tree[coll]
         for k in fpath.split("/"):
             node = node[k]
-        f = node.shape
-        shape = {"conv1d_w": lambda: (f[2], f[1], f[0]),
-                 "conv2d_w": lambda: (f[3], f[2], f[0], f[1]),
-                 "conv1d_as_dense_w": lambda: (f[1], f[0], 1)}.get(
-            kind, lambda: f)()
+        shape = paddle_shape(kind, node.shape)
         if kind.endswith("_w"):
             fan_in = shape[0] if kind == "dense_w" else np.prod(shape[1:])
             x = rng.randn(*shape) / np.sqrt(fan_in)
@@ -1642,16 +1670,65 @@ def synth_pdparams(model, model_args, seed):
     return out
 
 
+def pdparams_of(model, model_args):
+    """A paddle ``state_dict`` (numpy, ``0.``-prefixed keys) holding the
+    CAM++ ``model``'s own weights: the model's state in the flax layout
+    (the inverse of ``convert.jax_to_torch_state``), then the inverse of
+    each transform of the converter's spec (each a permutation)."""
+    from voiceprintrecognition_paddlepaddle_torch.models.convert_paddle \
+        import SPECS
+
+    bn_mods = {n for n, m in model.named_modules()
+               if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d))}
+    tree = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        mod, leaf = key.rsplit(".", 1)
+        v = t.detach().cpu().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        coll = "params"
+        if mod in bn_mods:
+            coll, leaf = {"weight": ("params", "scale"),
+                          "bias": ("params", "bias"),
+                          "running_mean": ("batch_stats", "mean"),
+                          "running_var": ("batch_stats", "var")}[leaf]
+        elif leaf == "weight":
+            leaf = "kernel"
+            v = np.transpose(v, {2: (1, 0), 3: (2, 1, 0),
+                                 4: (2, 3, 1, 0)}[v.ndim])
+        elif leaf != "bias":
+            raise KeyError(f"no flax leaf for {key}")
+        node = tree[coll]
+        for k in mod.split("."):
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    out = {}
+    for pkey, coll, fpath, tf, kind in SPECS["CAMPPlus"](80, **model_args):
+        v = tree[coll]
+        for k in fpath.split("/"):
+            v = v[k]
+        # every transform moves elements only: carry the paddle indices
+        # through it and scatter the flax values back
+        shape = paddle_shape(kind, v.shape)
+        idx = np.asarray(tf(np.arange(int(np.prod(shape))).reshape(shape)))
+        w = np.empty(idx.size, np.float32)
+        w[idx.ravel()] = v.ravel()
+        out[f"0.{pkey}"] = w.reshape(shape)
+    return out
+
+
 def run_cli(module, args, timeout=600):
-    """``python -m <PORT>.<module> args`` in a child process (``runpy``, as
-    ``-m`` runs it), which prints its kernel launch counts as the last
-    line; returns (stdout, launches)."""
+    """``python -m <PORT>.<module> args`` in a child process: the child
+    calls the module's ``main`` on ``args`` (what ``-m`` runs), prints its
+    return value as JSON, then its kernel launch counts as the last line;
+    returns (stdout, launches, value)."""
     code = (
-        "import json, runpy, sys\n"
-        f"sys.argv = [{module!r}] + {list(args)!r}\n"
-        f"runpy.run_module('{PORT}.{module}', run_name='__main__')\n"
+        "import json, sys\n"
+        f"from {PORT}.{module} import main\n"
+        f"value = main({list(args)!r})\n"
         f"from {PORT}.models import fcm_kernel, trunk_kernel\n"
         f"from {PORT}.ops import fbank_kernel\n"
+        "print(json.dumps(value, default=str))\n"
         "print(json.dumps({'fbank': fbank_kernel.fbank_fused.launches, "
         "'fcm': fcm_kernel.fcm_fused.launches, "
         "'campplus_trunk': trunk_kernel.trunk_stats.launches}))\n")
@@ -1661,7 +1738,8 @@ def run_cli(module, args, timeout=600):
         raise RuntimeError(f"{module} failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     lines = proc.stdout.strip().splitlines()
-    return "\n".join(lines[:-1]), json.loads(lines[-1])
+    return ("\n".join(lines[:-2]), json.loads(lines[-1]),
+            json.loads(lines[-2]))
 
 
 def yaml_with_lists(path, lists):
@@ -1820,7 +1898,7 @@ def workflow_phase(dev, card):
 
         # -- extract_features (the command line, the fbank kernel) ---------
         t = time.perf_counter()
-        _, launches = run_cli("extract_features", [
+        _, launches, _ = run_cli("extract_features", [
             f"--configs={yml}", f"--device={dev.type}",
             f"--save_dir={os.path.join(work, 'features')}"])
         out["launches"]["extract_features"] = launches
@@ -1982,7 +2060,7 @@ def workflow_phase(dev, card):
                           * 0.3 + 0.02 * rng.randn(192000)))
         db = os.path.join(work, "db")
         wav = lambda n: os.path.join(ROOT, "dataset", f"{n}.wav")  # noqa: E731
-        text, launches = run_cli("infer_recognition", [
+        text, launches, _ = run_cli("infer_recognition", [
             f"--configs={yml}", f"--device={dev.type}",
             f"--model_path={converted}",
             f"--audio_db_path={db}", "--threshold=-1.0",
@@ -2564,6 +2642,481 @@ def parallel_phase(dev, card, nproc=2):
     return out
 
 
+# ---- 13. the last modules ----------------------------------------------------
+P13_F0S = (130, 210, 290, 370)   # tests/test_predictor.py: 130 + 80 * spk
+P13_TURN_S, P13_GAP_S = 4.0, 0.8
+
+
+def p13_tone(f0, seconds, seed, amp=0.3):
+    """A tone speaker (``tests/test_predictor.py`` ``_tone``)."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * 16000)) / 16000
+    sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.rand()) / h
+              for h in range(1, 5))
+    return (amp * (sig + 0.05 * rng.randn(len(t)))).astype(np.float32)
+
+
+def p13_config(train_list):
+    """``tests/test_predictor.py`` ``_configs`` with the stock CAM++ of
+    ``configs/cam++.yml`` (192-d, its 80-mel Fbank) over 4 speakers, and
+    the recipe of its diarization bar: 40 epochs, learning rate 0.05,
+    ``dataset.seed`` 7."""
+    import copy
+
+    return {
+        "dataset_conf": {
+            "dataset": {"min_duration": 0.3, "max_duration": 1.0,
+                        "sample_rate": 16000, "use_dB_normalization": True,
+                        "target_dB": -20, "seed": 7},
+            "sampler": {"batch_size": 8, "shuffle": True, "drop_last": True},
+            "dataLoader": {"num_workers": 2},
+            "eval_conf": {"batch_size": 4, "max_duration": 2},
+            "train_list": train_list, "enroll_list": None,
+            "trials_list": None},
+        "preprocess_conf": copy.deepcopy(CONFIG["preprocess_conf"]),
+        "model_conf": {"model": "CAMPPlus",
+                       "model_args": dict(CONFIG["model_conf"]["model_args"]),
+                       "classifier": {"classifier_type": "Cosine",
+                                      "num_speakers": 4, "num_blocks": 0}},
+        "loss_conf": {"loss": "AAMLoss",
+                      "loss_args": {"margin": 0.2, "scale": 32}},
+        "optimizer_conf": {"optimizer": "Adam", "optimizer_args": {},
+                           "scheduler": "WarmupCosineSchedulerLR",
+                           "scheduler_args": {"learning_rate": 0.05,
+                                              "min_lr": 1.0e-5,
+                                              "warmup_epoch": 1}},
+        "train_conf": {"enable_amp": False, "max_epoch": 40,
+                       "log_interval": 10},
+    }
+
+
+def p13_conversation(path, order, seed0):
+    """Turns of ``P13_TURN_S`` s by the speakers ``order`` (f0s of
+    ``P13_F0S``) with ``P13_GAP_S`` s of silence between, fresh seeds;
+    written to ``path``. Returns the reference [(start, end, "spk<k>")]."""
+    pieces, reference, t0 = [], [], 0.0
+    for i, spk in enumerate(order):
+        pieces.append(p13_tone(P13_F0S[spk], P13_TURN_S,
+                               seed=seed0 + 17 * i + spk))
+        reference.append((t0, t0 + P13_TURN_S, f"spk{spk}"))
+        t0 += P13_TURN_S
+        if i != len(order) - 1:
+            pieces.append(np.zeros(int(P13_GAP_S * 16000), np.float32))
+            t0 += P13_GAP_S
+    write_wav(path, np.concatenate(pieces))
+    return reference
+
+
+def p13_score(reference, segments, path):
+    """DER of ``segments`` after a round trip through an RTTM file at
+    ``path`` (the port's ``write_rttm`` / ``load_rttm``), detailed."""
+    from voiceprintrecognition_paddlepaddle_torch.infer_utils.der import (
+        diarization_error_rate, load_rttm, write_rttm)
+
+    with open(path, "w", encoding="utf-8") as f:
+        write_rttm(f, "synth", segments)
+    return diarization_error_rate(reference, load_rttm(path)["synth"],
+                                  detailed=True)
+
+
+def p13_names_ok(reference, hypothesis):
+    """Each reference turn's most-overlapping hypothesis label is the
+    turn's own speaker name."""
+    for s, e, name in reference:
+        overlap = {}
+        for hs, he, label in hypothesis:
+            overlap[label] = overlap.get(label, 0.0) + max(
+                0.0, min(e, he) - max(s, hs))
+        if not overlap or max(overlap, key=overlap.get) != name:
+            return False
+    return True
+
+
+class fp32_convs:
+    """cuDNN convs in true fp32 (TF32 off) inside the block."""
+
+    def __enter__(self):
+        self.tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self.tf32
+        return False
+
+
+class kaldi_featurizer:
+    """The Predictor's Fbank and masked CMN through ``kaldi.fbank`` (plain
+    PyTorch in fp32): a featurizer that launches no kernel."""
+    dither = 0.0
+
+    def __init__(self, method_args):
+        self.method_args = dict(method_args)
+
+    def __call__(self, waveforms, input_lens_ratio=None, rng=None):
+        from voiceprintrecognition_paddlepaddle_torch.ops import (features,
+                                                                   kaldi)
+
+        return features.apply_cmn_and_mask(
+            kaldi.fbank(waveforms, **self.method_args), input_lens_ratio)
+
+
+def p13_chunk_cos(pred, plain, chunks):
+    """Cosines (min, mean) of the diarization chunk embeddings: as served
+    (``predict_batch``: the kernel path, each chunk padded to its bucket)
+    against the plain version of the same path (``fbank_fused_reference``
+    and ``trunk_stats_reference`` on the same padded batch); the kernel
+    path at exact length against the fp32 model at exact length
+    (``kaldi.fbank``, CMN, the eager CAM++: the kernels' bf16 design
+    alone); as served against the fp32 model at exact length (that and
+    the bucket padding); as served against the fp32 plain Predictor
+    (``plain``: its eager model at the same padding)."""
+    from voiceprintrecognition_paddlepaddle_torch.data_utils.collate import \
+        bucket_length
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        trunk_kernel as tk
+    from voiceprintrecognition_paddlepaddle_torch.ops import features
+    from voiceprintrecognition_paddlepaddle_torch.ops.fbank_kernel import \
+        fbank_fused_reference
+
+    model, dev = pred.model, pred.device
+    n = len(chunks[0])
+    if any(len(c) != n for c in chunks):
+        raise AssertionError("diarization chunks of unequal length")
+    exact = torch.from_numpy(np.stack(chunks)).to(dev)
+    length = bucket_length(n)
+    padded = torch.nn.functional.pad(exact, (0, length - n))
+    ratios = np.full(len(chunks), n / length, np.float32)
+    with torch.no_grad():
+        served = torch.from_numpy(pred.predict_batch(chunks)).to(dev)
+        feats = features.apply_cmn_and_mask(
+            fbank_fused_reference(padded, sr=16000, n_mels=80), ratios)
+        t_valid, _ = tk.trunk_geometry(feats.shape[1])
+        stats = tk.trunk_stats_reference(
+            tk.pack_trunk(model), model.FCM_0(feats),
+            tk.tvalids_from_ratios(ratios, t_valid))
+        plain_version = model.DenseBN_0(stats).float()
+        kernel_exact = pred._embed(exact, None)
+        with fp32_convs():
+            fp32_exact = model(plain._audio_featurizer(exact)).float()
+            fp32_served = torch.from_numpy(
+                plain.predict_batch(chunks)).to(dev)
+
+    def cos(a, b):
+        c = torch.nn.functional.cosine_similarity(a.double(), b.double(),
+                                                  dim=1)
+        return [float(c.min()), float(c.mean())]
+
+    return {"served vs its plain version": cos(served, plain_version),
+            "exact length: kernel path vs fp32": cos(kernel_exact,
+                                                     fp32_exact),
+            "served vs fp32 at exact length": cos(served, fp32_exact),
+            "served vs the fp32 Predictor": cos(served, fp32_served)}
+
+
+def last_modules_phase(dev, card):
+    """Phase 13: the stock CAM++ trained on the card by the port's
+    Trainer (the recipe of ``tests/test_predictor.py``'s diarization bar)
+    and served by ``Predictor.speaker_diarization``: (a) the quality bar on
+    the kernel path and on the fp32 plain model; (b) the RTTM evaluation
+    flow (``eval_speaker_diarization.infer_data`` and ``compute_metrics``
+    as child processes); (c) ``eval_from_paddle`` (a child process)
+    against in-process ``Trainer.evaluate`` and ``Predictor.contrast``; (d)
+    the GUI actions; (e) the wall time of each step."""
+    import pickle
+
+    from voiceprintrecognition_paddlepaddle_torch import (
+        infer_contrast_gui, infer_recognition_gui,
+        infer_speaker_diarization_gui)
+    from voiceprintrecognition_paddlepaddle_torch.infer_utils.der import (
+        load_rttm, write_rttm)
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+
+    fk, fkm, tk = _kernel_modules()
+    t0 = time.perf_counter()
+    out = {"card": card, "wall_s": {}, "launches": {}}
+    work = tempfile.mkdtemp(prefix="vpr_phase13_")
+
+    def lap(name, t):
+        out["wall_s"][name] = time.perf_counter() - t
+        log(f"[phase13] {card}: {name} {out['wall_s'][name]:.2f} s")
+
+    try:
+        # -- (a) train the stock CAM++ on 4 tone speakers -------------------
+        t = time.perf_counter()
+        lines = []
+        for spk, f0 in enumerate(P13_F0S):
+            for u in range(4):
+                p = os.path.join(work, f"s{spk}_u{u}.wav")
+                write_wav(p, p13_tone(f0, 1.2, seed=spk * 10 + u))
+                lines.append(f"{p}\t{spk}")
+        train_list = os.path.join(work, "train_list.txt")
+        with open(train_list, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        cfg = p13_config(train_list)
+        tr = Trainer(cfg, device=dev)
+        tr.train(save_model_path="", log_dir="", do_eval=False)
+        model_pt = os.path.join(work, "model", "model.pt")
+        os.makedirs(os.path.dirname(model_pt))
+        torch.save({k: v.detach().cpu() for k, v in
+                    tr.model.state_dict().items()}, model_pt)
+        bn_var = [m.running_var.min().item() for m in tr.model.modules()
+                  if isinstance(m, (torch.nn.BatchNorm1d,
+                                    torch.nn.BatchNorm2d))]
+        out["train"] = {"steps": tr.step, "loss": float(tr.train_loss),
+                        "acc": float(tr.train_acc),
+                        "bn_running_var_min": min(bn_var)}
+        lap("train", t)
+        log(f"[phase13] {card}: Trainer.train() of the stock CAM++ (192-d) "
+            f"on 4 tone speakers x 4 clips of 1.2 s, 40 epochs at lr 0.05, "
+            f"seed 7: {out['train']}")
+        trained = tr.model
+        del tr
+
+        # -- (a) the quality bar: the kernel path, then the fp32 model ------
+        conv = os.path.join(work, "conversation.wav")
+        reference = p13_conversation(conv, [0, 1, 2, 0, 1, 2], 0)
+        pred = Predictor(cfg, model_path=model_pt, device=dev)
+        if pred._embed is None:
+            raise AssertionError("the stock CAM++ did not take the kernel path")
+        t = time.perf_counter()
+        reset_launches(fk, fkm, tk)
+        segs = pred.speaker_diarization(conv, speaker_num=3)
+        out["launches"]["diarize"] = read_launches(fk, fkm, tk)
+        lap("diarize_kernel_path", t)
+        # the fp32 side: kaldi.fbank and the eager model, no kernel
+        plain = Predictor(cfg, model_path=model_pt, device=dev)
+        plain._embed = None
+        plain._replicas = [(d, m, None) for d, m, _ in plain._replicas]
+        plain._audio_featurizer = kaldi_featurizer(
+            cfg["preprocess_conf"]["method_args"])
+        t = time.perf_counter()
+        reset_launches(fk, fkm, tk)
+        with fp32_convs():
+            segs32 = plain.speaker_diarization(conv, speaker_num=3)
+        out["launches"]["diarize_fp32"] = read_launches(fk, fkm, tk)
+        lap("diarize_fp32", t)
+        chunks = [np.asarray(c[2], np.float32) for c in
+                  pred.speaker_diarize.segments_audio(pred._load_audio(conv))]
+        cos = p13_chunk_cos(pred, plain, chunks)
+        out["quality"] = {
+            "kernel_path": p13_score(reference, segs,
+                                     os.path.join(work, "hyp_k.rttm")),
+            "fp32": p13_score(reference, segs32,
+                              os.path.join(work, "hyp_32.rttm")),
+            "speakers": {"kernel_path": len({s["speaker"] for s in segs}),
+                         "fp32": len({s["speaker"] for s in segs32})},
+            "chunks": len(chunks), "chunk_cos": cos}
+        q = out["quality"]
+        for name in ("kernel_path", "fp32"):
+            r = q[name]
+            log(f"[phase13] {card}: diarization of a 6-turn 3-speaker "
+                f"conversation ({P13_TURN_S} s turns, {P13_GAP_S} s gaps), "
+                f"{name}: {q['speakers'][name]} speakers, DER "
+                f"{r['diarization error rate']:.5f}, false alarm "
+                f"{r['false alarm']:.5f}, missed detection "
+                f"{r['missed detection']:.5f}, confusion "
+                f"{r['confusion']:.5f} (bars: 3 speakers, DER < 0.20, "
+                f"confusion < 0.05)")
+        log(f"[phase13] {card}: {q['chunks']} chunk embeddings, cos min / "
+            f"mean: " + "; ".join(f"{k} {c[0]:.6f} / {c[1]:.6f}" for k, c in
+                                  cos.items())
+            + f" (bars: served vs plain version min 0.9999, exact length "
+            f"min 0.999); the trained model's smallest BN running variance "
+            f"{out['train']['bn_running_var_min']:.3e}; launches: kernel "
+            f"path {out['launches']['diarize']}, fp32 path "
+            f"{out['launches']['diarize_fp32']}")
+        for name in ("kernel_path", "fp32"):
+            r = q[name]
+            if not (q["speakers"][name] == 3
+                    and r["diarization error rate"] < 0.20
+                    and r["confusion"] < 0.05):
+                raise AssertionError(f"diarization misses the bar on the "
+                                     f"{name} path: {r}")
+        if not (out["launches"]["diarize"]["fbank"] > 0
+                and out["launches"]["diarize"]["campplus_trunk"] > 0):
+            raise AssertionError("diarization did not run the kernels")
+        if any(out["launches"]["diarize_fp32"].values()):
+            raise AssertionError("the fp32 path launched a kernel")
+        if not (cos["served vs its plain version"][0] >= 0.9999
+                and cos["exact length: kernel path vs fp32"][0] >= 0.999):
+            raise AssertionError(f"kernel-path chunk embeddings disagree: "
+                                 f"{cos}")
+
+        # -- (b) the RTTM flow: infer_data and compute_metrics --------------
+        t = time.perf_counter()
+        db_root = os.path.join(work, "audio_db")
+        data_list = os.path.join(work, "data_list.txt")
+        refs = {}
+        with open(data_list, "w", encoding="utf-8") as f:
+            for c, (name, order) in enumerate(
+                    (("conv_a", [0, 2, 1, 2, 0, 1]),
+                     ("conv_b", [1, 0, 2, 0, 2, 1]))):
+                path = os.path.join(work, f"{name}.wav")
+                refs[name] = p13_conversation(path, order, 1000 * (c + 1))
+                f.write(f"{path}\t{name}\n")
+                for spk in range(3):
+                    d = os.path.join(db_root, name, f"spk{spk}")
+                    os.makedirs(d)
+                    for n in range(2):
+                        write_wav(os.path.join(d, f"{n}.wav"), p13_tone(
+                            P13_F0S[spk], 2.0, seed=5000 + 100 * c
+                            + 10 * spk + n))
+        references = os.path.join(work, "references.rttm")
+        with open(references, "w", encoding="utf-8") as f:
+            for name, ref in refs.items():
+                write_rttm(f, name, [{"speaker": s, "start": a, "end": b}
+                                     for a, b, s in ref])
+        hypotheses = os.path.join(work, "hypotheses.rttm")
+        _, launches, _ = run_cli("eval_speaker_diarization.infer_data", [
+            "--configs=configs/cam++.yml", f"--device={dev.type}",
+            f"--model_path={model_pt}", f"--data_list_path={data_list}",
+            f"--result_path={hypotheses}", f"--audio_db_path={db_root}"])
+        out["launches"]["infer_data"] = launches
+        lap("infer_data", t)
+        t = time.perf_counter()
+        text, _, metrics = run_cli("eval_speaker_diarization.compute_metrics",
+                                   [f"--references={references}",
+                                    f"--hypotheses={hypotheses}"])
+        lap("compute_metrics", t)
+        hyp = load_rttm(hypotheses)
+        named = {name: p13_names_ok(refs[name], hyp.get(name, []))
+                 for name in refs}
+        out["rttm_flow"] = {"metrics": metrics, "named": named,
+                            "labels": sorted({s for h in hyp.values()
+                                              for _, _, s in h})}
+        log(f"[phase13] {card}: infer_data (a child process) over 2 "
+            f"conversations, each with its own audio_db: launches "
+            f"{launches}; compute_metrics: {metrics}; labels "
+            f"{out['rttm_flow']['labels']}, each turn named by its speaker: "
+            f"{named} (bars: DER < 0.20, names)")
+        if not (metrics["diarization error rate"] < 0.20
+                and all(named.values()) and launches["fbank"] > 0
+                and launches["campplus_trunk"] > 0):
+            raise AssertionError(f"the RTTM flow is wrong: {out['rttm_flow']}"
+                                 f"\n{text}")
+
+        # -- (c) eval_from_paddle on (a)'s weights as a .pdparams ----------
+        t = time.perf_counter()
+        pd_dir = os.path.join(work, "paddle")
+        os.makedirs(pd_dir)
+        rng = np.random.RandomState(SEED + 13)
+        lists = [os.path.join(pd_dir, f"{p}_list.txt")
+                 for p in ("train", "enroll", "trials")]
+        with open(lists[0], "w", encoding="utf-8") as f:
+            f.write(f"{os.path.join(work, 's0_u0.wav')}\t0\n")
+        for part, n, path in (("enroll", 1, lists[1]), ("trials", 2, lists[2])):
+            with open(path, "w", encoding="utf-8") as f:
+                # the 4 trained speakers and 4 between them
+                for k, f0 in enumerate(sorted(P13_F0S + (170, 250, 330, 410))):
+                    for u in range(n):
+                        p = os.path.join(pd_dir, f"{part}{k}_{u}.wav")
+                        write_wav(p, p13_tone(f0, rng.uniform(3.0, 20.0),
+                                              seed=9000 + 10 * k + u + n))
+                        f.write(f"{p}\t{k}\n")
+        yml = yaml_with_lists(os.path.join(pd_dir, "cam.yml"), lists)
+        args = dict(CONFIG["model_conf"]["model_args"])
+        pdparams = os.path.join(pd_dir, "model.pdparams")
+        with open(pdparams, "wb") as f:
+            pickle.dump(pdparams_of(trained, args), f)
+        converted = os.path.join(pd_dir, "converted")
+        common = ["--configs", yml, "--pdparams", pdparams, "--workdir",
+                  converted, "--device", dev.type]
+        _, launches, got = run_cli("eval_from_paddle", common)
+        out["launches"]["eval_from_paddle"] = launches
+        lap("eval_from_paddle", t)
+        back = torch.load(os.path.join(converted, "model.pt"),
+                          weights_only=True)
+        same_weights = all(torch.equal(back[k].cpu(), v.cpu()) for k, v in
+                           trained.state_dict().items()
+                           if not k.endswith("num_batches_tracked"))
+        t = time.perf_counter()
+        want = Trainer(load_yaml(yml), device=dev).evaluate(
+            resume_model=converted)
+        lap("evaluate_in_process", t)
+        diffs = [abs(got[k] - w) for k, w in
+                 zip(("eer", "min_dcf", "threshold"), want)]
+        with open(lists[1], encoding="utf-8") as f:
+            a = [ln.split("\t")[0] for ln in f.read().splitlines()]
+        t = time.perf_counter()
+        _, launches, pr = run_cli("eval_from_paddle",
+                                  common + ["--predict", a[0], a[1]])
+        out["launches"]["eval_from_paddle_predict"] = launches
+        lap("eval_from_paddle_predict", t)
+        score = Predictor(load_yaml(yml), model_path=converted,
+                          device=dev).contrast(a[0], a[1])
+        out["eval_from_paddle"] = {
+            "child": got, "in_process": dict(zip(("eer", "min_dcf",
+                                                  "threshold"), want)),
+            "abs_diff": diffs, "predict": pr["score"],
+            "contrast_in_process": score, "same_weights": same_weights}
+        log(f"[phase13] {card}: eval_from_paddle (a child process) on (a)'s "
+            f"trained CAM++ written as a .pdparams (converted back "
+            f"bit-equal: {same_weights}) over 8 tone speakers x (1 enroll "
+            f"+ 2 trials) clips of 3-20 s: EER {got['eer']:.6f}, MinDCF "
+            f"{got['min_dcf']:.6f}, threshold {got['threshold']:.6f}; "
+            f"in-process Trainer.evaluate {want}; |d| {diffs} (bar 1e-6); "
+            f"launches {out['launches']['eval_from_paddle']}; --predict "
+            f"{pr['score']:.6f} against Predictor.contrast {score:.6f} (bar "
+            f"1e-5), launches {launches}")
+        if not (same_weights and max(diffs) <= 1e-6
+                and abs(pr["score"] - score) <= 1e-5
+                and min(out["launches"]["eval_from_paddle"].values()) > 0):
+            raise AssertionError("eval_from_paddle disagrees with the "
+                                 "in-process evaluation or missed a kernel")
+
+        # -- (d) the GUI actions on the trained checkpoint ------------------
+        t = time.perf_counter()
+        clip = {}
+        for key, (spk, seed) in {"s0_a": (0, 7000), "s0_b": (0, 7001),
+                                 "s0_c": (0, 7002), "s1": (1, 7003)}.items():
+            clip[key] = os.path.join(work, f"{key}.wav")
+            write_wav(clip[key], p13_tone(P13_F0S[spk], 2.0, seed=seed))
+        stream = p13_tone(P13_F0S[0], 3.0, seed=7004)
+        reset_launches(fk, fkm, tk)
+        contrast = infer_contrast_gui.ContrastActions(pred, 0.6)
+        same = contrast.compare(clip["s0_a"], clip["s0_b"])
+        diff = contrast.compare(clip["s0_a"], clip["s1"])
+        db_pred = Predictor(cfg, model_path=model_pt, device=dev,
+                            audio_db_path=os.path.join(work, "gui_db"))
+        rec = infer_recognition_gui.RecognitionActions(db_pred)
+        registered = rec.register(clip["s0_a"], "alice")
+        recognised = rec.recognise(clip["s0_c"])
+        window = infer_recognition_gui.StreamWindow(16000)
+        texts = [rec.stream_block(window, stream[i:i + 1024])
+                 for i in range(0, len(stream), 1024)]
+        diar, diar_text = infer_speaker_diarization_gui.DiarizationActions(
+            pred).diarize(conv, "3")
+        out["launches"]["gui"] = read_launches(fk, fkm, tk)
+        lap("gui_actions", t)
+        heard = [x for x in texts if x is not None]
+        out["gui"] = {"same": same, "different": diff,
+                      "register": list(registered), "recognise": recognised,
+                      "stream_blocks": len(texts),
+                      "stream_recognitions": len(heard),
+                      "stream_last": heard[-1] if heard else None,
+                      "diarize_equals_a": diar == segs}
+        log(f"[phase13] {card}: GUI actions: contrast {same!r} / {diff!r}; "
+            f"register {registered}, recognise {recognised!r}; the stream "
+            f"window over {len(texts)} blocks of 1024: {len(heard)} "
+            f"recognitions, last {out['gui']['stream_last']!r}; diarize "
+            f"returns (a)'s {len(diar)} segments: "
+            f"{out['gui']['diarize_equals_a']}; launches "
+            f"{out['launches']['gui']}")
+        if not (same.startswith("SAME") and diff.startswith("DIFFERENT")
+                and registered[0] and recognised.startswith("speaker: alice")
+                and len(heard) == len(texts) - 15
+                and heard[-1].startswith("speaker: alice")
+                and diar == segs and diar_text.count("\n") == len(segs)):
+            raise AssertionError(f"a GUI action is wrong: {out['gui']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"]["phase"] = time.perf_counter() - t0
+    log(f"[phase13] {card}: phase 13 wall {out['wall_s']['phase']:.1f} s: "
+        f"{ {k: round(v, 2) for k, v in out['wall_s'].items()} }")
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -2839,6 +3392,10 @@ def main():
     # ---- 12. data parallelism: DDP, rank-sharded eval, DCP, DP serving ---
     parallel = parallel_phase(dev, card)
     print(json.dumps({"parallel": parallel}), flush=True)
+
+    # ---- 13. the last modules: diarization quality, tools, GUI actions ---
+    phase13 = last_modules_phase(dev, card)
+    print(json.dumps({"phase13": phase13}), flush=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     def phase11_launches(kernel):
@@ -2846,6 +3403,9 @@ def main():
 
     def phase12_launches(kernel):
         return {path: n[kernel] for path, n in parallel["launches"].items()}
+
+    def phase13_launches(kernel):
+        return {path: n[kernel] for path, n in phase13["launches"].items()}
 
     train_launches = {"fbank_per_step": 1,
                       "eval": training["eval"]["launches"],
@@ -2866,6 +3426,7 @@ def main():
         "launches_eval": train_launches["eval"]["fbank"],
         "launches_phase11": phase11_launches("fbank"),
         "launches_phase12": phase12_launches("fbank"),
+        "launches_phase13": phase13_launches("fbank"),
         "ms": ms(fb3["ms"]), "plain_ms": ms(fb3["plain_ms"]), **fb_bound,
         "library_ms": None, "cufft_ms": ms(fb3["cufft_ms"]),
         "graph_ms": ms(fb3["graph_ms"]), "shape": "b256 x 3 s"}
@@ -2897,6 +3458,7 @@ def main():
          "launches_eval": train_launches["eval"]["fcm"],
          "launches_phase11": phase11_launches("fcm"),
          "launches_phase12": phase12_launches("fcm"),
+         "launches_phase13": phase13_launches("fcm"),
          "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
          **fcm_bounds["b32 x 16 s"], "library_ms": None,
          "cudnn_ms": ms(f16["cudnn_ms"]),
@@ -2918,6 +3480,7 @@ def main():
          "launches_eval": train_launches["eval"]["campplus_trunk"],
          "launches_phase11": phase11_launches("campplus_trunk"),
          "launches_phase12": phase12_launches("campplus_trunk"),
+         "launches_phase13": phase13_launches("campplus_trunk"),
          "ms": ms(tr_kern), "plain_ms": ms(tr_plain), **tr_bound,
          "library_ms": None, "shape": "b256 x 3 s",
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),

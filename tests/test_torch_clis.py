@@ -2,7 +2,9 @@
 ``extract_features``, ``infer_recognition`` and ``convert_paddle``
 (``python -m voiceprintrecognition_paddlepaddle_torch.<name>``).
 
-Each answers ``--help``. ``create_data`` on a CN-Celeb-shaped tree (802
+Each answers ``--help``, as do the later command lines (``eval_from_paddle``,
+the three GUIs, ``infer_speaker_diarization`` and the
+``eval_speaker_diarization`` tools). ``create_data`` on a CN-Celeb-shaped tree (802
 speakers in CN-Celeb, the ones from id 800 on the test split, and two in
 CN-Celeb2 offset by 800) writes the list the root ``create_data.py`` of
 the JAX package writes, line for line. ``extract_features --device=cpu``
@@ -49,8 +51,13 @@ def _run(args, timeout=300, **kw):
                           **kw)
 
 
-@pytest.mark.parametrize("name", ["create_data", "extract_features",
-                                  "infer_recognition", "convert_paddle"])
+@pytest.mark.parametrize("name", [
+    "create_data", "extract_features", "infer_recognition", "convert_paddle",
+    "eval_from_paddle", "infer_contrast_gui", "infer_recognition_gui",
+    "infer_speaker_diarization_gui", "infer_speaker_diarization",
+    "eval_speaker_diarization.infer_data",
+    "eval_speaker_diarization.compute_metrics",
+    "eval_speaker_diarization.create_aishell4_test_rttm"])
 def test_help(name):
     run = _run(["-m", f"{PKG}.{name}", "--help"])
     assert run.returncode == 0, run.stderr[-2000:]

@@ -1,5 +1,6 @@
 """PyTorch port, packaging and host helpers: importing the port never
-loads jax; no port source imports jax, flax, the JAX package or
+loads jax, nor matplotlib or tkinter (the viewer and the GUIs import them
+where they draw; the GPU host has neither); no port source imports jax, flax, the JAX package or
 scikit-learn (the GPU host has none of them); the copied host helpers
 (``bucket_length``, ``AudioSegment``) agree with the JAX package's; the
 kernel build reports a missing toolchain instead of running anything
@@ -43,15 +44,22 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "utils.config", "optimizer.adam", "models.convert_paddle",
            "convert_paddle", "create_data", "extract_features",
            "infer_recognition", "utils.record", "data_utils.featurizer",
-           "parallel", "parallel.mesh", "launch_multihost"]
+           "parallel", "parallel.mesh", "launch_multihost",
+           "infer_utils.viewer", "infer_utils.player", "infer_contrast_gui",
+           "infer_recognition_gui", "infer_speaker_diarization_gui",
+           "eval_from_paddle", "eval_speaker_diarization",
+           "eval_speaker_diarization.infer_data",
+           "eval_speaker_diarization.compute_metrics",
+           "eval_speaker_diarization.create_aishell4_test_rttm"]
 
 
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys\n"
             + "".join(f"import voiceprintrecognition_paddlepaddle_torch.{m}\n"
                       for m in MODULES)
-            + "bad = sorted(m for m in sys.modules if m in ('jax', 'sklearn') "
-              "or m.startswith(('jax.', 'flax', 'sklearn.', "
+            + "bad = sorted(m for m in sys.modules if m in ('jax', 'sklearn', "
+              "'matplotlib', 'tkinter') or m.startswith(('jax.', 'flax', "
+              "'sklearn.', 'matplotlib.', 'tkinter.', "
               "'voiceprintrecognition_paddlepaddle_tpu')))\n"
               "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}

@@ -1,10 +1,15 @@
 """Speaker diarization of a long recording with the port's Predictor
-(counterpart of the root ``infer_speaker_diarization.py``; its
-``--show_plot`` waits for the port of the viewer).
+(counterpart of the root ``infer_speaker_diarization.py``).
+
+``--show_plot=True`` draws the timeline into
+``output/speaker_diarization.png`` (``infer_utils/viewer.PlotSpeaker``),
+which needs matplotlib: without it the command raises ``ImportError``
+after printing the results.
 
 Run: python -m voiceprintrecognition_paddlepaddle_torch.infer_speaker_diarization
 --configs=configs/cam++.yml --model_path=<model.pt> [--device=cuda]
 [--audio_path=dataset/test_long.wav] [--search_audio_db=True]
+[--show_plot=True]
 """
 
 import argparse
@@ -26,6 +31,7 @@ def main(argv=None):
     add_arg("speaker_num", int,  None, "oracle speaker count (optional)")
     add_arg("search_audio_db", bool, False,
             "name speakers by searching the voiceprint database")
+    add_arg("show_plot",   bool, False, "render the diarization timeline")
     add_arg("threshold",   float, 0.6,
             "same-speaker decision threshold for audio-db matching")
     add_arg("model_path",  str,  "models/CAMPPlus_Fbank/best_model/",
@@ -43,6 +49,10 @@ def main(argv=None):
     print("diarization results:")
     for result in results:
         print(result)
+    if args.show_plot:
+        from .infer_utils.viewer import PlotSpeaker
+        PlotSpeaker(results, audio_path=args.audio_path).draw(
+            "output/speaker_diarization.png")
     return results
 
 

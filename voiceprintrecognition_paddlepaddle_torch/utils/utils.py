@@ -1,12 +1,16 @@
-"""Config plumbing and command-line helpers (copy of the JAX package's
-``utils/utils.py`` ``Dict`` / ``dict_to_object`` / ``add_arguments`` /
-``print_arguments``)."""
+"""Config plumbing, command-line helpers and score utilities (copy of the
+JAX package's ``utils/utils.py`` ``Dict`` / ``dict_to_object`` /
+``add_arguments`` / ``print_arguments`` / ``cal_accuracy_threshold`` /
+``cal_accuracy`` / ``cosin_metric``)."""
 
 import argparse
 
+import numpy as np
+
 from .logger import logger
 
-__all__ = ["Dict", "dict_to_object", "add_arguments", "print_arguments"]
+__all__ = ["Dict", "dict_to_object", "add_arguments", "print_arguments",
+           "cal_accuracy_threshold", "cal_accuracy", "cosin_metric"]
 
 
 class Dict(dict):
@@ -74,3 +78,29 @@ def add_arguments(argname, type, default, help, argparser, **kwargs):
                            type=type,
                            help=help + " Default: %(default)s.",
                            **kwargs)
+
+
+def cal_accuracy_threshold(y_score, y_true):
+    """Scan thresholds 0.00..0.99 for the best accuracy
+    (reference ``utils/utils.py`` cal_accuracy_threshold), vectorised."""
+    y_score = np.asarray(y_score, dtype=np.float32)
+    y_true = np.asarray(y_true)
+    thresholds = np.arange(100, dtype=np.float32) * 0.01
+    # (100, N) >= comparison in one shot
+    preds = y_score[None, :] >= thresholds[:, None]
+    accs = (preds == y_true[None, :].astype(bool)).mean(axis=1)
+    best = int(np.argmax(accs))
+    return float(accs[best]), float(thresholds[best])
+
+
+def cal_accuracy(y_score, y_true, threshold=0.5):
+    """Accuracy of (score >= threshold) against binary labels
+    (reference ``utils/utils.py`` cal_accuracy)."""
+    y_score = np.asarray(y_score)
+    y_true = np.asarray(y_true)
+    return float(((y_score >= threshold) == y_true.astype(bool)).mean())
+
+
+def cosin_metric(x1, x2):
+    """Cosine similarity of two vectors (reference ``utils/utils.py`` cosin_metric)."""
+    return float(np.dot(x1, x2) / (np.linalg.norm(x1) * np.linalg.norm(x2)))
