@@ -23,7 +23,7 @@ Phases (any failure raises and the script exits non-zero):
             b256 x 298 frames, 3 x 798 frames, 1598 and 3198 frames exact
             and ragged, and ragged padded 8 s and 32 s batches held row by
             row against their exact-length embeddings; then every cluster
-            size the kernel allows (R <= 400 rows per block) at b1 x 398
+            size the kernel allows (R <= 256 rows per block) at b1 x 398
             frames with ratio 0.75 (one /embedding), b2 x 3198 (ragged)
             and b32 x 1598
 6. main     Predictor(device="cuda"): register / recognition / contrast
@@ -45,7 +45,11 @@ Phases (any failure raises and the script exits non-zero):
             stages of the b32 x 16 s embed; the trunk
             at b256 x 298, b64 x 398, b1 x 398 and b32 x 1598 frames with
             its default cluster split against the smallest cluster that
-            shape allows, in turns; every cluster size at the serving and
+            shape allows, in turns, with each split's block threads and
+            shared memory; where block 0's time goes at b256 x 298 and
+            b32 x 1598 (the kernel's phase stamps: stem, bottleneck
+            products, CAM sums and exchange, local conv, gate MLP, append,
+            transits, pooling); every cluster size at the serving and
             bucket shapes, and the resident clusters of every split the
             rule may take; each kernel's bound (bytes or operations over
             the H100's published peaks)
@@ -375,7 +379,7 @@ def cluster_sweep(tk, packed, model, rng, dev, card):
                 continue
             rows = tk.rows_per_block(t16, cs)
             resident = tk._max_clusters(cs, rows, t_valid, index)
-            ms_ = cuda_ms(lambda: tk.trunk_stats(packed, fx, tv, cluster=cs),
+            ms_ = cuda_ms(lambda: tk._trunk_stats_at(packed, fx, tv, cs),
                           5 if b >= 32 else 10)
             row[cs] = {"rows_per_block": rows, "resident_clusters": resident,
                        "ms": ms_}
@@ -383,6 +387,27 @@ def cluster_sweep(tk, packed, model, rng, dev, card):
         log(f"[times] {card}: trunk cluster sweep {name} frames: " + "; ".join(
             f"cluster={cs} R={r['rows_per_block']} resident="
             f"{r['resident_clusters']} {r['ms']:.3f} ms" for cs, r in row.items()))
+    return out
+
+
+def trunk_phase_split(tk, packed, cases, card):
+    """Where block 0 of the trunk kernel spends its time, at each of
+    ``cases`` ({name: (fcm_out, tvalids)}, the default split): the
+    kernel's phase stamps (``trunk_phase_times``, a mean of 5 launches),
+    ms per phase by ``%globaltimer`` and the share of SM cycles, beside
+    the kernel's CUDA-event ms."""
+    out = {}
+    for name, (fx, tv) in cases.items():
+        st = tk.trunk_phase_times(packed, fx, tv, iters=5)
+        kernel = cuda_ms(lambda: tk.trunk_stats(packed, fx, tv), 5)
+        cyc = sum(st["cycles"].values())
+        ghz = cyc / sum(st["ms"].values()) / 1e6
+        out[name] = {"kernel_ms": kernel, "ms": st["ms"], "sm_ghz": ghz,
+                     "cycle_share": {k: v / cyc for k, v in st["cycles"].items()}}
+        log(f"[trunk split] {card}: {name}: kernel {kernel:.3f} ms; block 0 "
+            f"{sum(st['ms'].values()):.3f} ms at {ghz:.2f} GHz: " + ", ".join(
+                f"{k} {v:.3f} ms ({st['cycles'][k] / cyc:.1%})"
+                for k, v in st["ms"].items()))
     return out
 
 
@@ -572,7 +597,8 @@ def cos_min(a, b):
 
 def check_trunk(name, model, packed, fcm_out, tv, tk, cluster=None):
     """Trunk kernel against its plain version; returns the stats max |d|."""
-    s_k = tk.trunk_stats(packed, fcm_out, tv, cluster=cluster)
+    s_k = (tk.trunk_stats(packed, fcm_out, tv) if cluster is None
+           else tk._trunk_stats_at(packed, fcm_out, tv, cluster))
     s_p = tk.trunk_stats_reference(packed, fcm_out, tv)
     e_k = model.DenseBN_0(s_k)
     e_p = model.DenseBN_0(s_p)
@@ -3342,12 +3368,17 @@ def main():
             cs_def, rows = tk.default_split(b, t, dev)
             cs_min = smallest_cluster(tk, t16)
             k, p = turns(
-                lambda: tk.trunk_stats(packed, fx, tv, cluster=cs_min),
+                lambda: tk._trunk_stats_at(packed, fx, tv, cs_min),
                 lambda: tk.trunk_stats(packed, fx, tv), iters)
+            threads, smem = tk.block_launch(rows, t_valid)
             split_times[name] = {
                 "cluster": cs_def, "rows_per_block": rows, "ms": k,
                 "smallest_cluster": cs_min, "smallest_cluster_ms": p,
+                "block_threads": threads, "block_smem_bytes": smem,
                 **trunk_bound(tk, packed, fx, tv)}
+        trunk_split_ms = trunk_phase_split(
+            tk, packed, {"b256 x 298": (fcm_b256, None),
+                         "b32 x 1598": (fcm16, None)}, card)
         stages16 = {
             "featurize": cuda_ms(lambda: feat(w16), 10),
             "fcm kernel": cuda_ms(lambda: fkm.fcm_fused(packed_fcm, feats_16), 10),
@@ -3369,7 +3400,8 @@ def main():
         f"block (cs: {{R: clusters}}): {json.dumps(resident)}")
     for name, st in split_times.items():
         log(f"[times] {card}: trunk {name} frames, default split cluster="
-            f"{st['cluster']} (R={st['rows_per_block']}) {st['ms']} ms; "
+            f"{st['cluster']} (R={st['rows_per_block']}, {st['block_threads']} threads, "
+            f"{st['block_smem_bytes']} bytes of shared memory) {st['ms']} ms; "
             f"smallest cluster={st['smallest_cluster']} "
             f"{st['smallest_cluster_ms']} ms; bound {st['bound_ms']:.4f} ms "
             f"({st['bound_by']}, {st['work_gflop']:.2f} GFLOP)")
@@ -3486,7 +3518,8 @@ def main():
          "ms_b32x16s": ms(tr16_kern), "plain_ms_b32x16s": ms(tr16_plain),
          "cluster_launches_main_path": main_clusters,
          "clusters_checked": sorted(checked), "split_times": split_times,
-         "cluster_sweep": sweep, "resident_clusters": resident},
+         "cluster_sweep": sweep, "resident_clusters": resident,
+         "phase_split": trunk_split_ms},
     ], "embed_utt_per_s": 256e3 / embed_ms,
         "embed_16s_utt_per_s": 32e3 / embed16_ms, "serve": served,
         "train_utt_per_s": training["fp32"]["train_utt_per_s"],

@@ -121,7 +121,10 @@ def model(cuda):
 
 
 # (t_raw, tvalids, cluster): the default split (cluster None), then every
-# cluster size at one request's length and at the 16 s and 32 s buckets
+# cluster size at one request's length and at the 16 s and 32 s buckets;
+# then b256 x 298 exact (the main path's batch, its own default split) and
+# a ragged 8 s batch at every cluster size. Every batch runs the layers
+# whose cin (128 + 32 li) is no multiple of the kernel's 64-column K slice.
 TRUNK_CASES = [
     (3198, None, None), (3198, [1600, 1101, 99], None), (1598, None, None),
     (1598, [800, 433, 1], None), (798, None, None),
@@ -129,26 +132,31 @@ TRUNK_CASES = [
     (98, None, None)] + [
     (t_raw, tvalids, cluster)
     for t_raw, tvalids in ((398, [150]), (1598, [800, 433, 1]),
-                           (3198, [1600, 1101, 99]))
-    for cluster in (1, 2, 4, 8)]
+                           (3198, [1600, 1101, 99]), (798, [399, 250, 37]))
+    for cluster in (1, 2, 4, 8)] + [(298, 256, None)]
 
 
 @pytest.mark.parametrize("t_raw,tvalids,cluster", TRUNK_CASES)
 def test_trunk_kernel_matches_plain_version(cuda, model, t_raw, tvalids,
                                             cluster):
+    """``tvalids`` an int: a batch of that many at exact length."""
     packed = tk.pack_trunk(model)
-    b = 3 if tvalids is None else len(tvalids)
+    if isinstance(tvalids, int):
+        b, tvalids = tvalids, None
+    else:
+        b = 3 if tvalids is None else len(tvalids)
     feats = torch.from_numpy(np.random.RandomState(1).randn(
         b, t_raw, 80).astype(np.float32)).to(cuda)
     fcm = model.FCM_0(feats)
     _, t16 = tk.trunk_geometry(t_raw)
     if cluster is not None and -(-t16 // (16 * cluster)) * 16 > tk.SMEM_MAX_T16:
         with pytest.raises(ValueError, match="rows per block"):
-            tk.trunk_stats(packed, fcm, tvalids, cluster=cluster)
+            tk._trunk_stats_at(packed, fcm, tvalids, cluster)
         return
     before = tk.trunk_stats.launches
     by_size = dict(tk.trunk_stats.cluster_launches)
-    got = tk.trunk_stats(packed, fcm, tvalids, cluster=cluster)
+    got = (tk.trunk_stats(packed, fcm, tvalids) if cluster is None
+           else tk._trunk_stats_at(packed, fcm, tvalids, cluster))
     torch.cuda.synchronize()
     assert tk.trunk_stats.launches == before + 1
     if cluster is not None:

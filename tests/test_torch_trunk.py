@@ -124,16 +124,165 @@ def test_geometry_and_tvalids_match_jax(t_raw):
 def test_pack_shapes(setup):
     _, _, packed = setup
     plan = tk.trunk_plan()
-    assert packed["w_stem"].shape == (1600, 128)
-    assert packed["w_lin1"].shape == (plan["lin1_rows"], 128)
+    slices = sum(-(-s["cin"] // 64) for s in plan["layers"])
+    assert slices == 492 and tk.lin1_offsets()[-1] == slices - 16
+    assert packed["w_stem"].shape == (1600 // 64, 8192)
+    assert packed["w_lin1"].shape == (slices, 8192)
     assert packed["wide_ab"].shape == (55, 2, 1024)
-    assert packed["w_local"].shape == (52, 384, 32)
+    assert packed["w_local"].shape == (52, 384 * 32)
     assert packed["w_cam1"].shape == (52, 128, 64)
     assert packed["w_cam2"].shape == (52, 64, 32)
     assert [packed[f"w_t{b}"].shape for b in range(3)] == [
-        (512, 256), (1024, 512), (1024, 512)]
+        (2 * 8, 8192), (4 * 16, 8192), (4 * 16, 8192)]
     for k, t in packed.items():
         assert t.is_contiguous() and torch.isfinite(t.float()).all(), k
+    w = tk.trunk_weights(packed)
+    assert w["w_stem"].shape == (1600, 128)
+    assert w["w_lin1"].shape == (plan["lin1_rows"], 128)
+    assert w["w_local"].shape == (52, 384, 32)
+    assert [w[f"w_t{b}"].shape for b in range(3)] == [
+        (512, 256), (1024, 512), (1024, 512)]
+
+
+def _plain_weights(tm):
+    """The products' weights as plain (K, N) bf16 matrices, straight from
+    the module (the layouts before the kernel's wgmma slices)."""
+    plan = tk.trunk_plan()
+    bf = torch.bfloat16
+    w = tm.TDNNLayer_0.Conv_0.weight.float()
+    out = {"w_stem": w.permute(2, 1, 0).reshape(-1, w.shape[0]).to(bf)}
+    lin1, local = [], []
+    for bi, n in enumerate(plan["num_layers"]):
+        blk = getattr(tm, f"CAMDenseTDNNBlock_{bi}")
+        for li in range(n):
+            layer = getattr(blk, f"CAMDenseTDNNLayer_{li}")
+            lin1.append(layer.Conv_0.weight[:, :, 0].float().t())
+            cw = layer.CAMLayer_0.Conv_0.weight.float()
+            local.append(cw.permute(2, 1, 0).reshape(-1, cw.shape[0]))
+        out[f"w_t{bi}"] = getattr(tm, f"Conv_{bi}").weight[:, :, 0].float().t().to(bf)
+    out["w_lin1"] = torch.cat(lin1).to(bf)
+    out["w_local"] = torch.stack(local).to(bf)
+    return out
+
+
+def test_wgmma_packing_unpacks_bit_for_bit(setup):
+    """``trunk_weights`` gives back every product's plain weights exactly
+    from the kernel's slice order, and that order is the one the kernel
+    reads: slice (pass p, K slice s) is 8192 elements, element (k, n) at
+    line n % 128 (64 elements a line), 8-element chunk (k % 64 // 8) ^ (n
+    % 8) of it (wgmma's 128-byte swizzle); a layer's slices past its cin
+    are zero; the local conv's (k, n) at (n // 8) * 3072 + (k // 8) * 64 +
+    (n % 8) * 8 + k % 8."""
+    _, tm, packed = setup
+    plain = _plain_weights(tm)
+    got = tk.trunk_weights(packed)
+    assert set(got) == set(plain)
+    for k, v in plain.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+    rng = np.random.RandomState(5)
+    for name, (kk, nn) in (("w_stem", (1600, 128)), ("w_t1", (1024, 512))):
+        flat = packed[name].reshape(-1)
+        for k, n in zip(rng.randint(0, kk, 64), rng.randint(0, nn, 64)):
+            p, s, line = n // 128, k // 64, n % 128
+            idx = ((p * (kk // 64) + s) * 8192 + line * 64
+                   + ((k % 64 // 8) ^ (line & 7)) * 8 + k % 8)
+            assert torch.equal(flat[idx], plain[name][k, n]), (name, k, n)
+    plan = tk.trunk_plan()
+    for spec, off in zip(plan["layers"], tk.lin1_offsets()):
+        cin = spec["cin"]
+        layer = tk._untile_slices(packed["w_lin1"][off:off + -(-cin // 64)],
+                                  -(-cin // 64) * 64, 128)
+        assert not layer[cin:].any(), cin                  # zero past cin
+    for l, k, n in zip(rng.randint(0, 52, 64), rng.randint(0, 384, 64),
+                       rng.randint(0, 32, 64)):
+        idx = (n // 8) * 3072 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+        assert torch.equal(packed["w_local"][l, idx], plain["w_local"][l, k, n])
+
+
+def _schedule(t16, cs):
+    """The kernel's walk over one utterance, in Python: for each block of
+    the cluster, each row pass of up to ``PASS_TILES`` 64-row tiles (one a
+    warpgroup) and each thread's A chunks of a K slice (thread t of
+    warpgroup wg: lines ``(t >> 3) + 16 j``, j < 4, of tile wg, columns
+    ``8 * (t & 7)`` of the slice). Yields (rank, first trunk row of the
+    pass, tiles, [(trunk row, column chunk)] of the rows the block owns)."""
+    rows = tk.rows_per_block(t16, cs)
+    for rank in range(cs):
+        r0 = min(rank * rows, t16)
+        nr = min(r0 + rows, t16) - r0
+        for rp in range(0, nr, tk.TILE_ROWS * tk.PASS_TILES):
+            nt = min(tk.PASS_TILES, -(-(nr - rp) // tk.TILE_ROWS))
+            copied = []
+            for tid in range(128 * nt):                  # a warpgroup a tile
+                wg, t = tid >> 7, tid & 127
+                for j in range(4):
+                    row = rp + wg * tk.TILE_ROWS + (t >> 3) + 16 * j
+                    if row < nr:
+                        copied.append((r0 + row, t & 7))
+            yield rank, r0 + rp, nt, copied
+
+
+def _split_cases():
+    """Every (t16, cs) the split rule can take, over every batch size the
+    tests' resident table distinguishes."""
+    cases = set()
+    for t16 in range(16, tk.MAX_T16 + 1, 16):
+        for b in (1, 3, 30, 64, 256):
+            cases.add((t16, tk.trunk_split(b, t16, h100_resident)[0]))
+    return sorted(cases)
+
+
+def test_tile_schedule_covers_every_row_and_column_once():
+    """For every t16 and split the rule can take: each trunk row < t16 is
+    staged by exactly one block's pass, once per 8-column chunk of a slice;
+    every K column of every product lies in one of its ceil(K / 64) slices,
+    the last one partial where K is not a multiple of 64 (the kernel zeroes
+    its columns past K, and the packed weights are zero there); the weight
+    slices of a pass serve all of its tiles, a pass holds at most
+    ``PASS_TILES`` tiles, and a block of up to that many tiles runs one
+    pass."""
+    plan = tk.trunk_plan()
+    ks = [5 * 320, *(s["cin"] for s in plan["layers"]),
+          *(b["c_out"] for b in plan["blocks"])]
+    for k in ks:
+        n = -(-k // tk.K_SLICE)
+        cols = [c for s in range(n) for c in range(s * tk.K_SLICE, (s + 1) * tk.K_SLICE)
+                if c < k]
+        assert cols == list(range(k)), k
+    assert any(k % tk.K_SLICE for k in ks)          # the partial slices exist
+    assert all(b["c_transit"] % tk.N_PASS == 0 for b in plan["blocks"])
+    for t16, cs in _split_cases():
+        seen = {}
+        for rank, g0, nt, copied in _schedule(t16, cs):
+            assert 1 <= nt <= tk.PASS_TILES
+            for g, q in copied:
+                seen[(g, q)] = seen.get((g, q), 0) + 1
+        assert sorted(seen) == [(g, q) for g in range(t16) for q in range(8)], (t16, cs)
+        assert set(seen.values()) == {1}, (t16, cs)
+        rows = tk.rows_per_block(t16, cs)
+        passes = [rank for rank, *_ in _schedule(t16, cs)]
+        for rank in set(passes):
+            want = -(-min(rows, t16 - rank * rows) // (tk.TILE_ROWS * tk.PASS_TILES))
+            assert passes.count(rank) == want, (t16, cs, rank)
+
+
+def test_each_append_lies_in_the_next_products_last_slice():
+    """The kernel fences a layer's gated append (32 concat columns written
+    with ordinary stores) just before the TMA copy of the next product's
+    last K slice, so those columns must lie in that slice and in no
+    earlier one, for every bottleneck after a block's first and for every
+    transit; a block's first bottleneck reads the stem's or the transit's
+    output from its first slice (fenced at its start)."""
+    plan = tk.trunk_plan()
+    reads = [(s["cin"], s["li"] > 0) for s in plan["layers"]]
+    reads += [(b["c_out"], True) for b in plan["blocks"]]
+    for k, after_append in reads:
+        if not after_append:
+            continue
+        last = -(-k // tk.K_SLICE) - 1
+        assert {c // tk.K_SLICE for c in range(k - 32, k)} == {last}, k
+    firsts = [s["cin"] for s in plan["layers"] if s["li"] == 0]
+    assert firsts == [b["c_in"] for b in plan["blocks"]]
 
 
 def test_cpu_tensor_runs_plain_version_without_launch(setup):
@@ -148,16 +297,15 @@ def test_cpu_tensor_runs_plain_version_without_launch(setup):
 
 # resident clusters of an NVIDIA H100 80GB HBM3 for every split the rule
 # may take (chip_smoke.py's resident_table, cudaOccupancyMaxActiveClusters):
-# cs -> (largest R at two blocks per SM, clusters up to that R, clusters
-# above it). A cluster sits inside one GPC, so 30 clusters of 4 fit at one
-# block per SM, not 33.
-H100_RESIDENT = {1: (176, 264, 132), 2: (160, 132, 66), 4: (144, 62, 30),
-                 8: (128, 30, 15)}
+# every block of the kernel holds an SM alone, at every R up to 256, so
+# this is cs -> clusters. A cluster sits inside one GPC, so 30 clusters of
+# 4 fit, not 33.
+H100_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15}
 
 
 def h100_resident(cs, rows):
-    r_two, two, one = H100_RESIDENT[cs]
-    return two if rows <= r_two else one
+    assert rows <= tk.SMEM_MAX_T16
+    return H100_RESIDENT[cs]
 
 
 # (B, t16) -> (cs, R) at the serving and bucket shapes on that card
@@ -172,9 +320,14 @@ def test_trunk_split_table(shape, want):
 
 
 def _cost(b, t16, cs):
-    """Waves x 64-row chunks of ``cs`` blocks per utterance on the card."""
+    """Waves x block cost of ``cs`` blocks per utterance on the card."""
     rows = tk.rows_per_block(t16, cs)
-    return -(-b // h100_resident(cs, rows)) * -(-rows // 64)
+    return -(-b // h100_resident(cs, rows)) * tk.block_cost(rows)
+
+
+def test_block_cost_counts_tiles_and_passes():
+    assert [tk.block_cost(r) for r in (16, 64, 112, 128, 160, 192, 208, 256)] == [
+        3, 3, 4, 4, 5, 5, 8, 8]
 
 
 @pytest.mark.parametrize("b", [1, 3, 30, 64, 256])
@@ -191,21 +344,23 @@ def test_trunk_split_rule(b):
                       if -(-t16 // (16 * c)) * 16 <= tk.SMEM_MAX_T16)
         if cs > cs_min:
             # a larger cluster only where it keeps 32 rows a block and
-            # takes fewer waves x chunks than the smallest, or as many
-            # in fewer waves
+            # costs less than the smallest (waves x block cost), or as
+            # much in fewer waves
             assert rows >= 32, t16
             assert _cost(b, t16, cs) <= _cost(b, t16, cs_min), t16
 
 
 @pytest.mark.parametrize("shape,want", [
-    ((16, 1600), (4, 400)), ((64, 400), (8, 64)), ((128, 208), (2, 112)),
-    ((100, 112), (2, 64)), ((8, 1600), (8, 208))])
+    ((16, 1600), (8, 208)), ((64, 400), (2, 208)), ((128, 208), (1, 208)),
+    ((100, 112), (1, 112)), ((8, 1600), (8, 208)), ((32, 800), (8, 112))])
 def test_trunk_split_waits_for_no_second_wave_it_can_avoid(shape, want):
-    """b16 x 1600: 16 clusters of 8 blocks of 208 rows cannot all be
-    resident (15), and 2 waves x 4 chunks lose to one wave of 7 at cs 4.
-    b64 x 400: three waves of one chunk at cs 8 beat one wave of four at
-    cs 2. b128 x 208 keeps 2 (one wave of 2 chunks) where cs 4 takes 3
-    waves of one."""
+    """b16 x 1600: only clusters of 8 blocks of 208 rows fit (R <= 256);
+    16 clusters take two waves of 15. b64 x 400: one wave of 64 clusters
+    of 2 (R 208, cost 8) beats three waves of 4 (R 112). b128 x 208 keeps
+    one block a clip (one wave, cost 8) where cs 2 takes two waves of cost
+    4. b100 x 112: one wave of single blocks. b32 x 800: three waves of
+    cost 4 at cs 8 beat two of cost 8 at cs 4 (5.3 against 6.3 ms on the
+    card)."""
     assert tk.trunk_split(*shape, h100_resident) == want
 
 
@@ -214,14 +369,14 @@ def test_bad_cluster_size_raises(setup, cluster):
     """Checked before the device dispatch, so for CUDA tensors too."""
     _, _, packed = setup
     with pytest.raises(ValueError, match="cluster must be"):
-        tk.trunk_stats(packed, torch.zeros(1, 98, 320), cluster=cluster)
+        tk._trunk_stats_at(packed, torch.zeros(1, 98, 320), None, cluster)
 
 
 @pytest.mark.parametrize("t_raw,cluster", [(1598, 1), (3198, 2)])
 def test_cluster_with_too_many_rows_per_block_raises(setup, t_raw, cluster):
     _, _, packed = setup
     with pytest.raises(ValueError, match="rows per block"):
-        tk.trunk_stats(packed, torch.zeros(1, t_raw, 320), cluster=cluster)
+        tk._trunk_stats_at(packed, torch.zeros(1, t_raw, 320), None, cluster)
 
 
 def _emulate_split(packed, fcm_out, tvalids, cs):
@@ -232,6 +387,7 @@ def _emulate_split(packed, fcm_out, tvalids, cs):
     from partial squared deviations. Rows are clipped at ``t_valid`` (the
     kernel's rows past it are zero)."""
     plan = tk.trunk_plan()
+    wp = tk.trunk_weights(packed)
     bf = torch.bfloat16
     mm = lambda a, w: a.float() @ w.float()               # noqa: E731
     b, t_raw, _ = fcm_out.shape
@@ -248,7 +404,7 @@ def _emulate_split(packed, fcm_out, tvalids, cs):
     sa = packed["stem_aff"]
     xcat = torch.zeros((b, t_valid, 1024), dtype=bf)
     for r0, r1 in ranges:
-        y = torch.relu((mm(cols[:, r0:r1], packed["w_stem"]) + sa[0])
+        y = torch.relu((mm(cols[:, r0:r1], wp["w_stem"]) + sa[0])
                        * sa[1] + sa[2])
         xcat[:, r0:r1, :128] = (y * mask[:, r0:r1]).to(bf)
 
@@ -266,7 +422,7 @@ def _emulate_split(packed, fcm_out, tvalids, cs):
         x2s = []
         for r0, r1 in ranges:
             h = torch.relu(xcat[:, r0:r1, :cin] * ab[0, :cin] + ab[1, :cin])
-            x2 = torch.relu((mm(h, packed["w_lin1"][off:off + cin]) + la[0])
+            x2 = torch.relu((mm(h, wp["w_lin1"][off:off + cin]) + la[0])
                             * la[1] + la[2])
             x2s.append((x2 * mask[:, r0:r1]).to(bf))
         # each block's partial segment sums, added in rank order
@@ -288,7 +444,7 @@ def _emulate_split(packed, fcm_out, tvalids, cs):
             ext = torch.cat([left, x2, right], 1)
             taps = torch.cat([ext[:, 2 + (j - 1) * dil:2 + (j - 1) * dil + r1 - r0]
                               for j in range(3)], -1)
-            y = mm(taps, packed["w_local"][l]) + cb[:32]
+            y = mm(taps, wp["w_local"][l]) + cb[:32]
             g = gate[:, seg_of[r0:r1]].float()
             xcat[:, r0:r1, c0:c0 + 32] = (y * g * mask[:, r0:r1]).to(bf)
         if spec["li"] == plan["num_layers"][spec["block"]] - 1:
@@ -297,7 +453,7 @@ def _emulate_split(packed, fcm_out, tvalids, cs):
             abt = packed["wide_ab"][plan["n_layers"] + bi]
             for r0, r1 in ranges:
                 h = torch.relu(xcat[:, r0:r1, :cw] * abt[0, :cw] + abt[1, :cw])
-                ht = mm(h, packed[f"w_t{bi}"]) + packed["tbias"][bi, :cw // 2]
+                ht = mm(h, wp[f"w_t{bi}"]) + packed["tbias"][bi, :cw // 2]
                 xcat[:, r0:r1, :cw // 2] = (ht * mask[:, r0:r1]).to(bf)
 
     cf, oa = plan["final_channels"], packed["out_aff"]
