@@ -15,8 +15,10 @@ Phases (any failure raises and the script exits non-zero):
 4. fcm      the FCM kernel against its plain version (both bf16) at full
             CAM++ width: b8 x 298 and b8 x 297 frames (where the JAX
             package's single-pass kernel runs), b4 x 1598 (the 16 s
-            bucket) and b2 x 3198 (the 32 s bucket, where it runs the
-            chunked kernel)
+            bucket), b2 x 3198 (the 32 s bucket, where it runs the
+            chunked kernel), and the edges of the kernel's items: b1 x 5
+            (shorter than every halo), b3 x 33 (one frame past a time
+            tile) and b1 x 1598 (one long clip)
 5. trunk    the trunk kernel against its plain version (both bf16), full
             CAM++ width with random weights and BN statistics from a seed,
             converted from the flax layout by models/convert.py:
@@ -40,9 +42,10 @@ Phases (any failure raises and the script exits non-zero):
             CUDA-graph replay (at b1 the events time the host's launches);
             the FCM kernel also against the model's plain
             FCM (cuDNN), there and at b1 x 398 and b64 x 398 (below
-            FCM_MIN_T), with the ms of each of its launches beside the
-            bytes the design moves (GB/s, TFLOP/s, the byte floor); the
-            stages of the b32 x 16 s embed; the trunk
+            FCM_MIN_T), with the ms of each of its four launches beside
+            the bytes the design moves and the operations it issues (GB/s,
+            TFLOP/s of the function's and of the design's work, the byte
+            floor); the stages of the b32 x 16 s embed; the trunk
             at b256 x 298, b64 x 398, b1 x 398 and b32 x 1598 frames with
             its default cluster split against the smallest cluster that
             shape allows, in turns, with each split's block threads and
@@ -420,7 +423,8 @@ def check_fcm(fkm, packed_fcm, rng, dev):
     """Phase 4: the FCM kernel against its plain version (both bf16);
     returns the largest max |d|."""
     fcm_max = 0.0
-    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198)):
+    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198), (1, 5), (3, 33),
+                 (1, 1598)):
         x = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
         got = fkm.fcm_fused(packed_fcm, x)
         ref = fkm.fcm_reference(packed_fcm, x)
@@ -530,23 +534,25 @@ def turns(plain, kernel, iters, plain_iters=None):
 def fcm_split(fkm, packed_fcm, fx, occ):
     """The ms of each launch of the FCM kernel (CUDA events around each,
     a mean of 10 runs) beside the bytes its design moves and the
-    operations it does: rows of {name, ms, bytes, gb_per_s, tflop_per_s,
-    floor_ms, items, grid}, floor_ms being the bytes over the HBM3 peak,
-    items and grid those of the persistent conv launches (the grids the
-    wrapper passes to the kernel, from ``occ``: fcm_occupancy)."""
+    operations it does: rows of {name, convs, ms, bytes, gb_per_s,
+    tflop_per_s (the function's work), design_tflop_per_s (what the kernel
+    issues, halos included), floor_ms, items, grid}, floor_ms being the
+    bytes over the HBM3 peak, items and grid those of the persistent
+    launches (the grids the wrapper passes to the kernel, from ``occ``:
+    fcm_occupancy)."""
     b, t, _ = fx.shape
     times = fkm.fcm_stage_times(packed_fcm, fx, 10)
-    items = [None] + [fkm.fcm_conv_items(b, t, f_out)
-                      for _, _, f_out, *_ in fkm.FCM_LAUNCHES[1:]]
-    grids = [None] + fkm.fcm_grids(b, t, occ)
+    grids = fkm.fcm_grids(b, t, occ)
     rows = []
-    for c, n_items, grid in zip(fkm.fcm_launch_costs(b, t), items, grids):
+    for ln, c, grid in zip(fkm.FCM_LAUNCHES, fkm.fcm_launch_costs(b, t),
+                           grids):
         ms_ = times[c["name"]]
-        rows.append({"name": c["name"], "ms": ms_, "bytes": c["bytes"],
-                     "gb_per_s": c["bytes"] / ms_ / 1e6,
+        rows.append({"name": c["name"], "convs": ln.convs, "ms": ms_,
+                     "bytes": c["bytes"], "gb_per_s": c["bytes"] / ms_ / 1e6,
                      "tflop_per_s": c["flop"] / ms_ / 1e9,
+                     "design_tflop_per_s": c["design_flop"] / ms_ / 1e9,
                      "floor_ms": c["bytes"] / PEAK_BYTES * 1e3,
-                     "items": n_items, "grid": grid})
+                     "items": fkm.fcm_items(b, t, ln), "grid": grid})
     return rows
 
 
@@ -557,7 +563,7 @@ def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
     (one /embedding and a micro-batch, below FCM_MIN_T): the kernel
     against model.FCM_0 in turns."""
     occ = fkm.fcm_occupancy(dev)
-    log(f"[fcm] {card}: conv kernel resident blocks per SM and SM count "
+    log(f"[fcm] {card}: each launch's resident blocks per SM and SM count "
         f"{occ}")
     out = {"occupancy": occ}
     for name, fx in feats.items():
@@ -573,9 +579,10 @@ def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
             f"design byte floor {floor:.4f} ms (the kernel at "
             f"{floor / ms(k):.1%} of it)")
         for r in split:
-            log(f"[fcm split] {card}: {name} {r['name']:7s} {r['ms']:.4f} ms, "
-                f"{r['bytes'] / 1e6:.1f} MB, {r['gb_per_s']:.0f} GB/s, "
-                f"{r['tflop_per_s']:.1f} TFLOP/s, byte floor "
+            log(f"[fcm split] {card}: {name} {r['name']} ({r['convs']}) "
+                f"{r['ms']:.4f} ms, {r['bytes'] / 1e6:.1f} MB, "
+                f"{r['gb_per_s']:.0f} GB/s, {r['tflop_per_s']:.1f} TFLOP/s "
+                f"({r['design_tflop_per_s']:.1f} issued), byte floor "
                 f"{r['floor_ms']:.4f} ms ({r['floor_ms'] / r['ms']:.1%}); "
                 f"items {r['items']}, grid {r['grid']}")
         log(f"[fcm split] {card}: {name} sum of launches "
@@ -2758,6 +2765,54 @@ def p13_names_ok(reference, hypothesis):
     return True
 
 
+def p13_margins(model_pt, dev, refs, paths, db_root):
+    """What phase 13's RTTM flow names each cluster from, as
+    ``infer_data`` computes it (its config, threshold, audio_db and
+    clustering, in this process): per conversation, per cluster, the
+    speaker whose turns it holds most of, the cosine of the cluster's
+    center to that speaker's mean voiceprint (``score``; the name needs
+    >= 0.6) and that cosine less the nearest other speaker's
+    (``margin``; the name needs > 0)."""
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+
+    out = {}
+    for name, ref in refs.items():
+        db = os.path.join(db_root, name)
+        pred = Predictor(configs="configs/cam++.yml", model_path=model_pt,
+                         threshold=0.6, audio_db_path=db, device=dev)
+        try:
+            segments = pred.speaker_diarize.segments_audio(
+                pred._load_audio(paths[name]))
+            feats = pred.predict_batch([s[2] for s in segments])
+            labels, centers = pred.speaker_diarize.clustering(feats)
+            turns = pred.speaker_diarize.postprocess(segments, labels)
+        finally:
+            index = os.path.join(db, "audio_indexes.bin")
+            if os.path.exists(index):
+                os.remove(index)
+        sims = (pred.normalize_features(np.asarray(centers, np.float32))
+                @ pred.normalize_features(
+                    pred.audio_feature_mean.astype(np.float32)).T)
+        rows = []
+        for k in range(len(centers)):
+            held = {}
+            for o in turns:
+                if o["speaker"] == k:
+                    for s, e, spk in ref:
+                        held[spk] = held.get(spk, 0.0) + max(
+                            0.0, min(e, o["end"]) - max(s, o["start"]))
+            true = max(held, key=held.get) if held else None
+            if true not in pred.users_name_mean:
+                rows.append({"speaker": true, "score": None, "margin": None})
+                continue
+            i = pred.users_name_mean.index(true)
+            rows.append({"speaker": true, "score": float(sims[k, i]),
+                         "margin": float(sims[k, i] - np.delete(
+                             sims[k], i).max())})
+        out[name] = rows
+    return out
+
+
 class fp32_convs:
     """cuDNN convs in true fp32 (TF32 off) inside the block."""
 
@@ -3008,14 +3063,24 @@ def last_modules_phase(dev, card):
         hyp = load_rttm(hypotheses)
         named = {name: p13_names_ok(refs[name], hyp.get(name, []))
                  for name in refs}
+        margins = p13_margins(model_pt, dev, refs, {
+            name: os.path.join(work, f"{name}.wav") for name in refs},
+            db_root)
         out["rttm_flow"] = {"metrics": metrics, "named": named,
                             "labels": sorted({s for h in hyp.values()
-                                              for _, _, s in h})}
+                                              for _, _, s in h}),
+                            "margins": margins}
         log(f"[phase13] {card}: infer_data (a child process) over 2 "
             f"conversations, each with its own audio_db: launches "
             f"{launches}; compute_metrics: {metrics}; labels "
             f"{out['rttm_flow']['labels']}, each turn named by its speaker: "
             f"{named} (bars: DER < 0.20, names)")
+        log(f"[phase13] {card}: naming margins per cluster (speaker, cosine "
+            f"to its voiceprint, less the nearest other's): " + "; ".join(
+                f"{name} " + ", ".join(
+                    f"{r['speaker']} {r['score']:.4f} {r['margin']:+.4f}"
+                    if r["margin"] is not None else f"{r['speaker']} -"
+                    for r in rows) for name, rows in margins.items()))
         if not (metrics["diarization error rate"] < 0.20
                 and all(named.values()) and launches["fbank"] > 0
                 and launches["campplus_trunk"] > 0):

@@ -4,11 +4,15 @@ and against the flax ``FCM``, at full width. The lengths cover the
 single-pass kernel (298, 297: an odd length with a half-valid last time
 group, 17) and the chunked one (600, 601: ``t2p > 256``). The CUDA kernel
 itself is held against the plain version in ``test_torch_gpu.py`` and
-``chip_smoke.py``.
+``chip_smoke.py``; here its plan (``fkm.FCM_LAUNCHES``: four launches,
+their items and each item's tiles with their halos) runs in plain PyTorch
+(``_emulate_plan``) against ``fcm_reference``.
 
 Bars (``tests/test_pallas_fcm.py:44``, ``:55-56``): bf16 packing
 cos > 0.9999 and max |d| < 5e-2 x scale; fp32 packing max |d| < 1e-4 x
-scale, with scale = max(1, max |ref|).
+scale, with scale = max(1, max |ref|). The plan's emulation: cos >
+0.99999 and max |d| < 1e-2 x scale (one bf16 rounding flip where the
+CPU's order of sums differs on a tile).
 """
 
 import jax.numpy as jnp
@@ -22,6 +26,17 @@ from voiceprintrecognition_paddlepaddle_tpu.models import pallas_fcm
 from voiceprintrecognition_paddlepaddle_tpu.models.campplus import FCM
 
 LENGTHS = [298, 297, 17, 600, 601]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads for this file: the suite runs six workers on the
+    host's cores, and one torch thread per core in each oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -132,36 +147,45 @@ def test_cpu_tensor_runs_plain_version_without_launch(setup):
 def test_launch_units_and_bytes(setup):
     """The units each launch of the kernel reads and writes (one unit: one
     frequency of 32 bf16 channels over every frame) add up to the design's
-    775, 2.54 GB at b32 x 1598 and 3.78 GB at b256 x 298; the operations
-    are those of the packed weights."""
+    215, 0.704 GB at b32 x 1598 and 1.050 GB at b256 x 298; the operations
+    are those of the packed weights, and the design's (halos and ragged
+    m-tiles included) exceed them by under a third."""
     _, tm = setup
     packed = fkm.pack_fcm(tm)
-    assert [n for n, *_ in fkm.FCM_LAUNCHES] == [
-        "conv0", "c1", "c2+sc3", "c4", "c5", "c6", "c7+sc8", "c9", "c10",
-        "c11"]
-    assert sum(r + w for *_, r, w in fkm.FCM_LAUNCHES) == 775
-    for (b, t), gb in (((32, 1598), 2.536), ((256, 298), 3.784)):
+    assert [ln.name for ln in fkm.FCM_LAUNCHES] == ["A", "B", "C", "D"]
+    assert [(ln.read_units, ln.write_units) for ln in fkm.FCM_LAUNCHES] == [
+        (5, 40), (40, 40), (40, 20), (20, 10)]
+    assert sum(ln.read_units + ln.write_units for ln in fkm.FCM_LAUNCHES) == 215
+    for (b, t), gb in (((32, 1598), 0.7036), ((256, 298), 1.0497)):
         costs = fkm.fcm_launch_costs(b, t)
         total = sum(c["bytes"] for c in costs)
-        assert total == 775 * b * t * 64
+        assert total == 215 * b * t * 64
         assert abs(total / 1e9 - gb) < 1e-3
-    # 2 x MACs of every packed conv at its output frequencies, the 1x1
-    # shortcuts (3, 8) in the launches of convs 2 and 7
+        for c in costs:
+            assert c["flop"] < c["design_flop"] < 1.33 * c["flop"], c
+    # 2 x MACs of every packed conv at its output frequencies: conv0 in the
+    # first launch, c11 in the last, the 1x1 shortcuts (3, 8) in the
+    # launches of convs 2 and 7
     f_out = [80, 40, 40, 40, 40, 40, 20, 20, 20, 20, 20, 10]
     macs = [packed[f"w{i}"].shape[0] * 32 * f_out[i] for i in range(12)]
-    by_launch = [macs[0], macs[1], macs[2] + macs[3], macs[4], macs[5],
-                 macs[6], macs[7] + macs[8], macs[9], macs[10], macs[11]]
+    by_launch = [sum(macs[0:4]), sum(macs[4:6]), sum(macs[6:9]),
+                 sum(macs[9:12])]
     costs = fkm.fcm_launch_costs(2, 7)
     assert [c["flop"] for c in costs] == [2 * 14 * m for m in by_launch]
+    convs = [t.conv for ln in fkm.FCM_LAUNCHES for t in ln.tiles[1:]]
+    assert sorted(convs + [3, 8]) == list(range(12))
 
 
-@pytest.mark.parametrize("b,t,f_out,want", [
-    (32, 1598, 40, 32 * 50 * 4), (32, 1598, 10, 32 * 50), (3, 17, 20, 6),
-    (1, 1000, 40, 32 * 4), (256, 298, 20, 256 * 10 * 2), (2, 3198, 10, 200)])
-def test_conv_items(b, t, f_out, want):
-    """Items of a conv launch: (32-frame tile, 10-frequency band, utterance);
-    a ragged last tile counts."""
-    assert fkm.fcm_conv_items(b, t, f_out) == want
+@pytest.mark.parametrize("b,t,name,want", [
+    (32, 1598, "B", 32 * 50 * 4), (32, 1598, "D", 32 * 100), (3, 17, "C", 6),
+    (1, 1000, "A", 63 * 4), (256, 298, "C", 256 * 10 * 2), (2, 3198, "D", 400),
+    (1, 1598, "D", 100)])
+def test_conv_items(b, t, name, want):
+    """Items of a launch: (time tile, band, utterance), 16 frames by 10
+    output frequencies in A, 32 by 10 in B and C, 16 by all 10 in D; a
+    ragged last tile counts. One long clip still gives D 100 items."""
+    ln = next(ln for ln in fkm.FCM_LAUNCHES if ln.name == name)
+    assert fkm.fcm_items(b, t, ln) == want
 
 
 @pytest.mark.parametrize("n_items,n_sms,per_sm,want", [
@@ -183,18 +207,170 @@ def test_persistent_grid_needs_a_resident_block():
         fkm.persistent_grid(10, 132, 0)
 
 
-_OCC = {"stride 2": 1, "shortcut": 1, "stride 1": 2, "identity": 1,
-        "sms": 132}
+_OCC = {"A": 2, "B": 2, "C": 1, "D": 1, "sms": 132}
 
 
 @pytest.mark.parametrize("b,t,want", [
-    (32, 1598, [132, 132, 264, 132, 132, 132, 264, 132, 132]),
-    (3, 17, [12, 12, 12, 12, 6, 6, 6, 6, 3]),
-    (1, 1598, [132, 132, 200, 132, 100, 100, 100, 100, 50])])
+    (32, 1598, [264, 264, 132, 132]),
+    (3, 17, [24, 12, 6, 6]),
+    (1, 1598, [264, 200, 100, 100])])
 def test_fcm_grids(b, t, want):
-    """The grids the wrapper passes to the kernel's nine conv launches:
-    each launch's items, capped by its instance's resident blocks."""
-    assert [k for _, k, *_ in fkm.FCM_LAUNCHES[1:]] == [
-        "stride 2", "shortcut", "stride 1", "identity", "stride 2",
-        "shortcut", "stride 1", "identity", "stride 2"]
+    """The grids the wrapper passes to the kernel's four launches: each
+    launch's items, capped by its kernel's resident blocks."""
     assert fkm.fcm_grids(b, t, _OCC) == want
+
+
+# ---- the kernel's plan in plain PyTorch -----------------------------------
+
+def _random_packed(seed):
+    """Packed FCM weights from a numpy seed (bf16 weights, fp32 affines
+    whose shifts are large enough that relu(affine(0)) is not zero)."""
+    rng = np.random.RandomState(seed)
+    packed = {}
+    for i in range(12):
+        rows = 9 if i == 0 else 32 if i in (3, 8) else 288
+        packed[f"w{i}"] = torch.from_numpy(
+            (rng.randn(rows, 32) / np.sqrt(rows)).astype(np.float32)
+        ).to(torch.bfloat16)
+    packed["aff"] = torch.from_numpy(np.stack(
+        [rng.uniform(0.5, 1.5, (12, 32)), rng.uniform(0.1, 0.5, (12, 32))],
+        axis=1).astype(np.float32))
+    return packed
+
+
+def _checked(idx, n):
+    """An index into a tile of ``n`` rows or slots: the plan must never
+    read past the tile it sized."""
+    assert int(idx.min()) >= 0 and int(idx.max()) < n, (idx.min(), idx.max(), n)
+    return idx
+
+
+def _emulate_plan(packed, feats):
+    """``fkm.FCM_LAUNCHES`` in plain PyTorch: per launch and item, tile 0
+    sliced from the launch's input with zeros outside [0, T) and the layer,
+    each later tile computed from the one before over the frames and
+    frequencies the plan gives it (every position outside [0, T) or the
+    layer stored as zero, the rest rounded to bf16), the last tile cropped
+    into the launch's output."""
+    cd = packed["w1"].dtype
+    aff = packed["aff"]
+    b, t_len, _ = feats.shape
+    x = feats.to(cd).float()[..., None]             # (B, T, 80, 1)
+    for ln in fkm.FCM_LAUNCHES:
+        out = torch.zeros(b, t_len, ln.f_out, 32)
+        n_tt, n_fb = -(-t_len // ln.tt), ln.f_out // ln.fb
+        for item in range(fkm.fcm_items(b, t_len, ln)):
+            f0, rest = (item % n_fb) * ln.fb, item // n_fb
+            t0, bi = (rest % n_tt) * ln.tt, rest // n_tt
+
+            def frames(tile):
+                return t0 - tile.halo + torch.arange(ln.tt + 2 * tile.halo)
+
+            def freqs(tile):
+                return tile.scale * f0 + tile.off + torch.arange(tile.slots)
+
+            tiles = []
+            for k, tile in enumerate(ln.tiles):
+                tf, ff = frames(tile), freqs(tile)
+                slot = torch.arange(tile.slots)
+                keep = (((tf >= 0) & (tf < t_len))[:, None]
+                        & ((ff >= 0) & (ff < tile.width)
+                           & (slot >= tile.lo) & (slot < tile.hi))[None, :])
+                if k == 0:
+                    v = x[bi][tf.clamp(0, t_len - 1)][:, ff.clamp(
+                        0, tile.width - 1)]
+                    tiles.append(torch.where(keep[..., None], v, 0.0))
+                    continue
+                prev, pin = ln.tiles[k - 1], tiles[k - 1]
+                stride = prev.width // tile.width
+                d = torch.arange(3)
+                rows = _checked(tf[:, None] - 1 + d - frames(prev)[0],
+                                pin.shape[0])                   # (R, dt)
+                cols = _checked(stride * ff[tile.lo:tile.hi, None] - 1 + d
+                                - freqs(prev)[0], pin.shape[1])  # (S, df)
+                win = pin[rows][:, :, cols]                      # (R, dt, S, df, c)
+                cin = pin.shape[-1]
+                w = packed[f"w{tile.conv}"].float().reshape(3, 3, cin, 32)
+                y = (torch.einsum("rtsfc,ftco->rso", win, w) * aff[tile.conv, 0]
+                     + aff[tile.conv, 1])
+                if tile.res >= 0:
+                    src, sin = ln.tiles[tile.res], tiles[tile.res]
+                    sc = 2 if tile.res_conv >= 0 else 1
+                    r_rows = _checked(tf - frames(src)[0], sin.shape[0])
+                    r_cols = _checked(sc * ff[tile.lo:tile.hi] - freqs(src)[0],
+                                      sin.shape[1])
+                    xr = sin[r_rows][:, r_cols]
+                    if tile.res_conv >= 0:
+                        xr = (xr @ packed[f"w{tile.res_conv}"].float()
+                              * aff[tile.res_conv, 0] + aff[tile.res_conv, 1])
+                    y = y + xr
+                full = torch.zeros(len(tf), tile.slots, 32)
+                full[:, tile.lo:tile.hi] = torch.relu(y).to(cd).float()
+                tiles.append(torch.where(keep[..., None], full, 0.0))
+            n = min(ln.tt, t_len - t0)
+            out[bi, t0:t0 + n, f0:f0 + ln.fb] = tiles[-1][:n]
+        x = out
+    return x.reshape(b, t_len, 320).to(cd)
+
+
+@pytest.mark.parametrize("b,t", [(1, 5), (2, 33), (1, 298)])
+def test_plan_matches_reference(b, t):
+    """T = 5 is shorter than every halo, 33 one frame past a 32-frame tile,
+    298 a 3 s bucket (ragged tiles in every launch)."""
+    packed = _random_packed(7)
+    x = torch.from_numpy(np.random.RandomState(t).randn(b, t, 80).astype(
+        np.float32))
+    ref = fkm.fcm_reference(packed, x).double()
+    got = _emulate_plan(packed, x).double()
+    assert got.shape == ref.shape == (b, t, 320)
+    cos = float((got * ref).sum() / (got.norm() * ref.norm()))
+    assert cos > 0.99999
+    assert float((got - ref).abs().max()) < 1e-2 * max(1.0, float(ref.abs().max()))
+
+
+def test_plan_tiles_fit_and_chain():
+    """Each tile's halo is one frame less than the tile before (one 3x3
+    conv), a stride-2 tile's band sits on the frequency map 2f - 1 .. 2f +
+    1 of the tile before, and the last tile is the item's own tt x fb."""
+    for ln in fkm.FCM_LAUNCHES:
+        assert ln.tiles[0].conv == -1
+        for prev, tile in zip(ln.tiles, ln.tiles[1:]):
+            assert prev.halo == tile.halo + 1
+            assert prev.width in (tile.width, 2 * tile.width)
+        last = ln.tiles[-1]
+        assert (last.halo, last.scale, last.off, last.slots, last.width) == (
+            0, 1, 0, ln.fb, ln.f_out)
+        assert ln.f_out % ln.fb == 0
+    assert fkm.FCM_LAUNCHES[0].tiles[1].conv == 0
+    assert fkm.FCM_LAUNCHES[-1].tiles[-1].conv == 11
+
+
+# ---- fcm_variants.py: its rewrites still match csrc/fcm.cu ---------------
+
+def _plan_settings(src):
+    """Each launch's (warps, tt, stages, blocks) as plan() states them."""
+    import fcm_variants as fv
+    tts = [int(m.group(1)) for m in fv._HEAD.finditer(src)]
+    tails = [(int(m.group(3)), int(m.group(1)), int(m.group(2)))
+             for m in fv._TAIL.finditer(src)]
+    return [(w, tt, st, bl) for tt, (w, st, bl) in zip(tts, tails)]
+
+
+def test_fcm_variants_rewrite_the_source():
+    """``fcm_variants.py`` rewrites the four launches' settings of
+    ``plan()`` and applies each ablation exactly once; the source as built
+    is left alone."""
+    import fcm_variants as fv
+    with open(fv.SRC, encoding="utf-8") as f:
+        src = f.read()
+    built = _plan_settings(src)
+    assert len(built) == 4
+    assert [tt for _, tt, _, _ in built] == [ln.tt for ln in fkm.FCM_LAUNCHES]
+    assert fv.variant_source(src, *fv.parse("as-built")) == src
+    per, flags = fv.parse("10/32/2/1_12/16/1/2_8/32/2/1_6/16/2/1,nobar+eldB")
+    out = fv.variant_source(src, per, flags)
+    assert _plan_settings(out) == per
+    for f in fv.ABLATIONS:
+        assert src.count(fv.ABLATIONS[f][0]) == 1, f
+    with pytest.raises(ValueError, match="unknown ablation"):
+        fv.parse("as-built,nommu")

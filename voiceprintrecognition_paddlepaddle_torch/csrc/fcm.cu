@@ -1,16 +1,18 @@
-// The CAM++ FCM front end (12 convolutions in 10 launches) for Hopper
-// (sm_90a).
+// The CAM++ FCM front end (12 convolutions in 4 launches, one per residual
+// block) for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of the JAX package's models/pallas_fcm.py:
 // `_kernel` (:251; pallas_call in `_fcm_call`, :399, one pass per
 // utterance) and `_fcm_call_chunked` (:442; the same kernel over halo
 // windows for long buckets). The chunked variant existed only because one
-// utterance's activations had to fit in VMEM. Here every convolution is a
-// walk over time tiles, so one code path serves any length.
+// utterance's activations had to fit in VMEM. Here every launch is a walk
+// over (time tile, frequency band) items with their halos, so one code
+// path serves any length.
 //
 // What it computes, per utterance (features x: (T, 80) fp32, rounded to
 // bf16), in torch's (C, F, T) terms with 'same' zero padding in both
-// frequency and time (frames past T read as zero):
+// frequency and time at every layer (frames outside [0, T) and
+// frequencies outside the layer read as zero):
 //   conv0   1 -> 32, 3x3                    relu(aff0)             F 80
 //   block 0 c1 3x3 stride (2,1)             relu(aff1)             F 40
 //           c2 3x3 + 1x1 stride-2 shortcut  relu(aff2(c2) + aff3(sc))
@@ -28,58 +30,73 @@
 // What bounds it on the H100. The function needs 4.8 MFLOP a frame, nearly
 // all in the ten 32 -> 32 3x3 convs (small GEMMs: K = 288, N = 32): at
 // b32 x 1598 frames 244 GFLOP, 0.247 ms on the bf16 tensor cores (b256 x
-// 298: 0.368 ms); its own bytes (features in, output out) take less. This
-// design keeps the intermediates in device memory, one launch per conv:
-// the launches read and write 775 "units" (a unit is one frequency of 32
-// bf16 channels over every frame; fcm_kernel.FCM_LAUNCHES), 2.54 GB at
-// b32 x 1598, a byte floor of 0.76 ms at 3.35 TB/s (b256 x 298: 3.78 GB,
-// 1.13 ms). At about 144 FLOP per byte a 32 -> 32 conv sits below the
-// card's ridge (295 FLOP/B for bf16 wgmma; mma.sync issues at about half
-// that rate, so for it the ridge is near 150), so the loads and the
-// product issue both have to be kept busy. On the H100 each conv runs at
-// 41-61 % of its byte floor and 164-213 TFLOP/s (PERF.md). Fusing the
-// chain (the activations kept on chip) is the step after this one.
+// 298: 0.368 ms). A 32 -> 32 conv does about 144 FLOP per byte of its own
+// activations, below the card's ridge, so a design that stores every
+// conv's output in device memory is bound by bytes: one launch per conv
+// moved 775 "units" (a unit is one frequency of 32 bf16 channels over
+// every frame, 64 bytes a frame), a byte floor of 0.76 ms at b32 x 1598.
+// This design keeps each residual block's intermediates on chip: four
+// launches, each reading its input and writing its output once, 215 units
+// (fcm_kernel.FCM_LAUNCHES), a byte floor of 0.21 ms at b32 x 1598 (b256 x
+// 298: 0.31 ms), below the operations bound. What it pays instead is the
+// halo: each item recomputes the border its chain of 3x3 convs needs, 18 %
+// more products at b32 x 1598, 23 % at b256 x 298 (fcm_kernel.
+// fcm_launch_costs, "design_flop"). With the bytes gone, the pace is set
+// by the products (mma.sync and its ldmatrix operands) and the epilogues,
+// which alternate between the block barriers of a layer; two blocks an SM
+// overlap one's epilogues with the other's products where shared memory
+// allows (PERF.md has the ablations).
 //
-// Design. Activations are channels-last bf16 (B, T_pad, F, 32) in a
-// workspace the wrapper allocates (T_pad = T rounded up to 32; rows past T
-// are never written and never read: the loads zero-fill them). conv0
-// (K = 9) runs on the CUDA cores. Every other conv is one templated
-// implicit-GEMM kernel with persistent blocks:
-//   - the grid of each launch is the wrapper's (fcm_kernel.fcm_grids: the
-//     card's resident blocks from vpr_fcm_occupancy, or the item count if
-//     smaller); each block walks items (32-frame time tile, band of 10
-//     output frequencies, utterance), stride gridDim.x, and stages the conv's
-//     weights (and the 1x1 shortcut's) and affines in shared memory once;
-//   - a ring of 3 input stages filled by cp.async.cg 16-byte copies keeps
-//     the next two items' loads in flight while one is computed (one block
-//     barrier per item: after it, the stage of the item before is free
-//     and takes the item two ahead). A stage
-//     holds the item's tile with its +-1 frame and +-1 frequency halo;
-//     frames outside [0, T) and frequencies outside the layer are
-//     zero-filled by the copy (src-size 0), never read from memory. The
-//     shortcut's input (the block input at the even frequencies) or the
-//     identity residual is a second, smaller copy into the same stage;
-//   - 10 warps, one output frequency each, 32 frames x 32 channels: the
-//     products are mma.sync.m16n8k16 bf16 in PTX, with A (16 frames x 16
-//     channels of one tap) from the staged tile by ldmatrix (rows 1 frame
-//     apart are a fixed stride apart, so each tap's window is a shifted
-//     view) and B (the tap's 16 x 32 weights) by ldmatrix.trans, loaded
-//     once per tap and used for both 16-frame halves. mma.sync and not
-//     wgmma: a wgmma tile is 64 rows of one warpgroup, and a 64-row A from
-//     registers needs the same ldmatrix traffic, while a 10-frequency band
-//     of 32 frames gives every warp its own small tile, no cross-warp
-//     barrier per tap, and items small enough that one long utterance
-//     still spreads over the SMs (b1 x 1598: 200 items). Keeping all 144
-//     B registers for the whole walk was tried: ten warps leave 168
-//     registers a thread, so it spilled and ran slower;
-//   - the epilogue works on the accumulator fragments in registers: the
-//     affine, the shortcut (its own accumulators, the 1x1 product over the
-//     same rows from the staged shortcut input), the identity residual
-//     (from the staged copy), the ReLU and the bf16 rounding; a per-warp
-//     1 KB bf16 transpose (XOR-swizzled, no bank conflicts) turns the
-//     fragments into 16-byte stores of 8 channels per lane.
+//   launch  convs                     reads              writes
+//   A       conv0, c1, c2 + sc3       fp32 features      (B, T, 40, 32)
+//   B       c4, c5 + identity         A's output         (B, T, 40, 32)
+//   C       c6, c7 + sc8              B's output         (B, T, 20, 32)
+//   D       c9, c10 + identity, c11   C's output         (B, T, 10, 32)
+//
+// Design. The plan (plan() below; fcm_kernel.FCM_LAUNCHES holds the same
+// tiles and checks them at load through vpr_fcm_plan) gives each launch its
+// item, a time tile of `tt` frames by a band of `fb` output frequencies,
+// its tiles, first (the launch's input) to last (its output), its input
+// ring depth, its blocks an SM and its warps a block. Tile i of an item at
+// frame t0 and band start f0 holds the frames [t0 - halo, t0 + tt + halo)
+// and the frequencies [scale * f0 + off, + slots) of its layer,
+// channels-last bf16 in shared memory; the halo shrinks by one frame per
+// 3x3 conv and the bands follow the stride-2 frequency maps (a stride-2
+// output f reads 2f - 1 .. 2f + 1, a shortcut 2f). Launch D holds all 20
+// frequencies (one band), with zero slots for frequencies -1 and 20.
+//   - Persistent blocks (fcm_kernel.fcm_grids: the card's resident blocks
+//     from vpr_fcm_occupancy, or the item count if smaller) walk items
+//     (band, time tile, utterance), stride gridDim.x; each stages its
+//     launch's weights and affines in shared memory once.
+//   - The input tile is copied by cp.async.cg 16-byte copies, into a ring
+//     of 2 stages (the next item loads while one is computed) or, where
+//     two blocks share an SM, 1 stage (the other block runs meanwhile).
+//     Frames outside [0, T) and frequencies outside the layer are
+//     zero-filled by the copy (src-size 0), never read from memory.
+//   - Each later tile is computed from the one before. Its positions
+//     (slot-major over frames) are cut into m-tiles of 16; warp w takes
+//     m-tiles w, w + warps, ..., a count fixed at compile time, and carries
+//     up to 4 of them through one pass of the taps. The products are
+//     mma.sync.m16n8k16 bf16 in PTX, A (16 positions x 16 channels of one
+//     tap) by ldmatrix from the tile before (each lane gives its own row
+//     address, so a tap's window is a shifted view), B (the tap's 16 x 32
+//     weights) by ldmatrix.trans, once per tap for the warp's m-tiles.
+//   - The epilogue works on the accumulator fragments in registers: the
+//     affine (this lane's channels' scales and shifts held in registers),
+//     the shortcut (its own accumulators, the 1x1 product from the block
+//     input's tile) or the identity residual (from the input tile), the
+//     ReLU and the bf16 rounding, then a bf16x2 store into the next tile,
+//     or, for the launch's last tile, into device memory. A position
+//     outside [0, T) or outside the layer's frequencies is stored as zero,
+//     since the plain version zero-pads every conv's input: it is not
+//     relu(affine(0)).
+//   - conv0 (K = 9, one channel) runs on the tensor cores too: each lane
+//     builds its A fragment from the fp32 feature tile (rounded to bf16,
+//     taps 9-15 zero) and holds conv0's B fragments in registers.
+//   - One block barrier between two tiles, one before each item.
 // Shared-memory rows are padded to an odd number of 16-byte chunks so that
-// the 8 row addresses of every ldmatrix fall in distinct banks.
+// the 8 row addresses of an ldmatrix over consecutive frames fall in
+// distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,83 +110,140 @@ typedef __nv_bfloat16 bf16;
 struct FcmParams {
   const float* x;      // (B, T, 80) features
   bf16* out;           // (B, T, 320) = (B, T, 10, 32)
-  bf16* ws;            // workspace of vpr_fcm_workspace_elems(B, T_pad) bf16
+  // vpr_fcm_workspace_elems(B, T) bf16: the outputs of launches A, B, C
+  bf16* ws;
   // conv i: (9 * cin, 32), rows (df * 3 + dt) * cin + c; the 1x1
   // shortcuts 3 and 8: (32, 32)
   const bf16 *w0, *w1, *w2, *w3, *w4, *w5, *w6, *w7, *w8, *w9, *w10, *w11;
   const float* aff;    // (12, 2, 32): scale, shift
-  // null, or 11 events: recorded before the first launch and after each of
-  // the 10 launches (per-launch times, for measurement)
+  // null, or 5 events: recorded before the first launch and after each of
+  // the 4 launches (per-launch times, for measurement)
   cudaEvent_t* events;
-  int B, T, T_pad;
-  // blocks of each conv launch after conv0, in launch order (any count
-  // >= 1 computes every item; fcm_kernel.fcm_grids sizes them)
-  int grid[9];
+  int B, T;
+  // blocks of each launch, in launch order (any count >= 1 computes every
+  // item; fcm_kernel.fcm_grids sizes them)
+  int grid[4];
 };
 
 namespace {
 
-constexpr int kC = 32;           // channels
-constexpr int kF0 = 80;          // input mel bins
-constexpr int kThreads = 256;    // conv0
-constexpr int kTT = 32;          // time tile (frames)
-constexpr int kFB = 10;          // output frequencies per item (divides 40, 20, 10)
-constexpr int kCWarps = kFB;     // conv kernel: one warp per output frequency
-constexpr int kCThreads = 32 * kCWarps;
-constexpr int kStages = 3;       // input ring depth
+constexpr int kC = 32;               // channels
+constexpr int kF0 = 80;              // input mel bins
+constexpr int kMG = 4;               // m-tiles a warp carries through one pass of the taps
 constexpr int kWRowB = kC * 2 + 16;  // a staged weight row, bytes (5 chunks)
+constexpr int kLaunches = 4;
+constexpr int kMaxTiles = 4;
 constexpr int kMaxDevices = 64;
 
-enum Mode { kPlain = 0, kShortcut = 1, kIdentity = 2 };
+// One tile of a launch (see the note at the head).
+struct Tile {
+  int conv;      // the packed conv that computes it; -1: the launch's input
+  int halo;      // frames [t0 - halo, t0 + tt + halo)
+  int scale, off;  // first frequency: scale * f0 + off
+  int slots;     // frequencies held (launch A's input: fp32 bins)
+  int lo, hi;    // slots computed (or copied); the others stay zero
+  int width;     // frequencies of the layer
+  int res;       // tile of the residual added before the ReLU; -1: none
+  int res_conv;  // its 1x1 stride-2 shortcut conv; -1: the identity
+};
 
-__device__ inline float bfr(float v) {  // round to bf16 and back
-  return __bfloat162float(__float2bfloat16_rn(v));
+struct Plan {
+  int tt, fb, f_out, n_tiles;
+  Tile t[kMaxTiles];
+  int stages;    // input ring depth (2: the next item loads while one runs)
+  int blocks;    // resident blocks an SM the launch is built for
+  int warps;     // warps a block
+};
+
+__host__ __device__ constexpr Plan plan(int l) {
+  return l == 0 ? Plan{16, 10, 40, 4, {
+                      {-1, 3, 2, -4, 28, 0, 28, 80, -1, -1},   // features, fp32
+                      {0, 2, 2, -3, 25, 0, 25, 80, -1, -1},    // conv0
+                      {1, 1, 1, -1, 12, 0, 12, 40, -1, -1},    // c1, stride 2
+                      {2, 0, 1, 0, 10, 0, 10, 40, 1, 3}},      // c2 + sc3(conv0)
+                  2, 2, 6}
+       : l == 1 ? Plan{32, 10, 40, 3, {
+                      {-1, 2, 1, -2, 14, 0, 14, 40, -1, -1},   // A's output
+                      {4, 1, 1, -1, 12, 0, 12, 40, -1, -1},    // c4
+                      {5, 0, 1, 0, 10, 0, 10, 40, 0, -1},      // c5 + identity
+                      {}},
+                  1, 2, 6}
+       : l == 2 ? Plan{32, 10, 20, 3, {
+                      {-1, 2, 2, -3, 25, 0, 25, 40, -1, -1},   // B's output
+                      {6, 1, 1, -1, 12, 0, 12, 20, -1, -1},    // c6, stride 2
+                      {7, 0, 1, 0, 10, 0, 10, 20, 0, 8},       // c7 + sc8(input)
+                      {}},
+                  2, 1, 8}
+                : Plan{16, 10, 10, 4, {
+                      {-1, 3, 1, -1, 22, 1, 21, 20, -1, -1},   // C's output
+                      {9, 2, 1, -1, 22, 1, 21, 20, -1, -1},    // c9
+                      {10, 1, 1, -1, 21, 1, 21, 20, 0, -1},    // c10 + identity
+                      {11, 0, 1, 0, 10, 0, 10, 10, -1, -1}},   // c11, stride 2
+                  2, 1, 8};
 }
 
-// ---- conv0: 1 -> 32, 3x3, on the CUDA cores --------------------------------
-// One thread per output (b, t, f), all 32 channels.
-__global__ void __launch_bounds__(kThreads)
-fcm_conv0_kernel(const float* __restrict__ x, bf16* __restrict__ y,
-                 const bf16* __restrict__ w0, const float* __restrict__ aff,
-                 int B, int T, int T_pad) {
-  __shared__ float ws[9 * kC];
-  __shared__ float as[2 * kC];
-  for (int i = threadIdx.x; i < 9 * kC; i += blockDim.x) ws[i] = __bfloat162float(w0[i]);
-  for (int i = threadIdx.x; i < 2 * kC; i += blockDim.x) as[i] = aff[i];
-  __syncthreads();
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)B * T * kF0) return;
-  const int f = (int)(idx % kF0);
-  const long long bt = idx / kF0;
-  const int t = (int)(bt % T), b = (int)(bt / T);
-  float in[9];
-#pragma unroll
-  for (int df = 0; df < 3; ++df)
-#pragma unroll
-    for (int dt = 0; dt < 3; ++dt) {
-      const int fi = f + df - 1, ti = t + dt - 1;
-      in[df * 3 + dt] = (fi >= 0 && fi < kF0 && ti >= 0 && ti < T)
-                            ? bfr(x[((size_t)b * T + ti) * kF0 + fi]) : 0.f;
-    }
-  uint32_t o[kC / 2];   // bf16 pairs
-#pragma unroll
-  for (int c = 0; c < kC; c += 2) {
-    float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      acc0 = fmaf(in[k], ws[k * kC + c], acc0);
-      acc1 = fmaf(in[k], ws[k * kC + c + 1], acc1);
-    }
-    const __nv_bfloat162 h = __floats2bfloat162_rn(
-        fmaxf(acc0 * as[c] + as[kC + c], 0.f),
-        fmaxf(acc1 * as[c + 1] + as[kC + c + 1], 0.f));
-    o[c / 2] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  uint4* dst = reinterpret_cast<uint4*>(y + (((size_t)b * T_pad + t) * kF0 + f) * kC);
-#pragma unroll
-  for (int i = 0; i < kC / 8; ++i)
-    dst[i] = make_uint4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
+__host__ __device__ constexpr int w_bytes(int conv) {
+  return conv <= 0 ? 0 : (conv == 3 || conv == 8 ? kC : 9 * kC) * kWRowB;
 }
+__host__ __device__ constexpr int n_affs(int l, int i) {  // affines of tile i
+  return i == 0 ? 0 : 1 + (plan(l).t[i].res_conv >= 0 ? 1 : 0);
+}
+// shared-memory layout of launch l: the weights of tiles 1.. (a 3x3 conv,
+// then its shortcut), their affines (scale, shift; 256 bytes each), the
+// input ring (2 stages of tile 0), tiles 1..
+__host__ __device__ constexpr int w_off(int l, int i) {
+  int o = 0;
+  for (int k = 1; k < i; ++k)
+    o += w_bytes(plan(l).t[k].conv) +
+         (plan(l).t[k].res_conv >= 0 ? w_bytes(plan(l).t[k].res_conv) : 0);
+  return o;
+}
+__host__ __device__ constexpr int aff_off(int l, int i) {
+  int o = w_off(l, plan(l).n_tiles);
+  for (int k = 1; k < i; ++k) o += n_affs(l, k) * 2 * kC * 4;
+  return o;
+}
+__host__ __device__ constexpr int tile_bytes(int l, int i) {
+  const Tile t = plan(l).t[i];
+  const int rows = plan(l).tt + 2 * t.halo;
+  return rows * (l == 0 && i == 0 ? t.slots * 4 : t.slots * kC * 2 + 16);
+}
+__host__ __device__ constexpr int tile_off(int l, int i) {  // tile 0: the ring
+  int o = aff_off(l, plan(l).n_tiles);
+  for (int k = 0; k < i; ++k) o += tile_bytes(l, k) * (k == 0 ? plan(l).stages : 1);
+  return o;
+}
+// the last tile is not in shared memory: its epilogue stores to device memory
+__host__ __device__ constexpr int smem_bytes(int l) { return tile_off(l, plan(l).n_tiles - 1); }
+
+// geometry of tile I of launch L, as compile-time scalars
+template <int L, int I>
+struct TG {
+  static constexpr int conv = plan(L).t[I].conv, halo = plan(L).t[I].halo;
+  static constexpr int scale = plan(L).t[I].scale, off = plan(L).t[I].off;
+  static constexpr int slots = plan(L).t[I].slots, lo = plan(L).t[I].lo;
+  static constexpr int hi = plan(L).t[I].hi, width = plan(L).t[I].width;
+  static constexpr int res = plan(L).t[I].res, res_conv = plan(L).t[I].res_conv;
+  static constexpr bool feats = L == 0 && I == 0;
+  static constexpr int rows = plan(L).tt + 2 * halo;
+  // a frame of the tile: slots x 32 bf16 and one pad chunk (odd chunks);
+  // the fp32 feature tile: 28 bins, 7 chunks
+  static constexpr int rowB = feats ? slots * 4 : slots * kC * 2 + 16;
+  static constexpr int bytes = rows * rowB;
+  static constexpr int np = rows * (hi - lo);  // positions computed
+  static constexpr int nmt = (np + 15) / 16;   // m-tiles
+  // shared-memory offsets: the tile (tile 0: the ring's first stage), its
+  // conv's weights and shortcut's, its affines
+  static constexpr int at = tile_off(L, I), w_at = w_off(L, I);
+  static constexpr int wsc_at = w_at + w_bytes(conv), aff_at = aff_off(L, I);
+};
+
+// a block may use 227 KB; an SM holds 228 KB, less 1 KB a block
+__host__ __device__ constexpr bool fits(int l) {
+  return smem_bytes(l) <= 232448 && plan(l).blocks * (smem_bytes(l) + 1024) <= 233472;
+}
+static_assert(fits(0) && fits(1) && fits(2) && fits(3),
+              "a launch's blocks do not fit an SM's shared memory");
 
 // ---- PTX: asynchronous copies, ldmatrix, mma.sync -------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -186,9 +260,8 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool f
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -229,228 +302,439 @@ __device__ __forceinline__ void load_b(uint32_t (&b)[4][2], uint32_t w) {
   }
 }
 
-// ---- 32 -> 32 3x3 convs: persistent implicit GEMM on mma.sync ------------
-struct ConvArgs {
-  const bf16* in;      // (B, T_pad, f_in, 32)
-  bf16* out;           // (B, out_ts, f_out, 32)
-  const bf16* w;       // (288, 32)
-  const float* aff;    // (2, 32)
-  const bf16* sc_in;   // kShortcut: block input (B, T_pad, 2 * f_out, 32)
-  const bf16* w_sc;    // kShortcut: (32, 32)
-  const float* aff_sc; // kShortcut: (2, 32)
-  const bf16* res;     // kIdentity: (B, T_pad, f_out, 32)
-  int B, f_in, f_out, out_ts, T, T_pad;
-};
-
-// shared-memory layout of one instance, in bytes
-template <int STRIDE, int MODE>
-struct Geo {
-  static constexpr int kSlots = STRIDE * (kFB - 1) + 3;   // input freqs + halo
-  static constexpr int kRowB = kSlots * kC * 2 + 16;      // a staged frame: odd chunks
-  static constexpr int kTileB = (kTT + 2) * kRowB;
-  static constexpr int kXRowB = kFB * kC * 2 + 16;        // shortcut input / residual
-  static constexpr int kXB = MODE == kPlain ? 0 : kTT * kXRowB;
-  static constexpr int kStageB = kTileB + kXB;
-  static constexpr int kOffW = kStages * kStageB;
-  static constexpr int kOffWsc = kOffW + 9 * kC * kWRowB;
-  static constexpr int kOffAff = kOffWsc + (MODE == kShortcut ? kC * kWRowB : 0);
-  static constexpr int kOffXpose = kOffAff + (MODE == kShortcut ? 4 : 2) * kC * 4;
-  static constexpr int kSmem = kOffXpose + kCWarps * 16 * kC * 2;
-};
-
-// Issue the copies of item `item` into `stage` (all threads; one commit
-// group per item is the caller's).
-template <int STRIDE, int MODE>
-__device__ __forceinline__ void stage_item(const ConvArgs& a, uint32_t stage, int item, int n_tt,
-                                           int n_fb) {
-  using G = Geo<STRIDE, MODE>;
-  const int fb = item % n_fb, rest = item / n_fb;
-  const int t0 = (rest % n_tt) * kTT, b = rest / n_tt, f0 = fb * kFB;
-  // row r = frame t0 - 1 + r, slot s = input frequency STRIDE * f0 - 1 + s
-  for (int v = threadIdx.x; v < (kTT + 2) * G::kSlots * 4; v += kCThreads) {
-    const int q = v & 3, s = (v >> 2) % G::kSlots, r = (v >> 2) / G::kSlots;
-    const int t = t0 - 1 + r, fi = STRIDE * f0 - 1 + s;
-    const bool ok = t >= 0 && t < a.T && fi >= 0 && fi < a.f_in;
-    const bf16* src = ok ? a.in + (((size_t)b * a.T_pad + t) * a.f_in + fi) * kC + q * 8 : a.in;
-    cp_async16(stage + r * G::kRowB + s * kC * 2 + q * 16, src, ok);
-  }
-  if (MODE != kPlain) {
-    // row r = frame t0 + r, slot s = output frequency f0 + s: the shortcut's
-    // input at frequency 2 (f0 + s), or the residual at f0 + s
-    const bf16* base = MODE == kShortcut ? a.sc_in : a.res;
-    const int fx = MODE == kShortcut ? 2 * a.f_out : a.f_out;
-    for (int v = threadIdx.x; v < kTT * kFB * 4; v += kCThreads) {
-      const int q = v & 3, s = (v >> 2) % kFB, r = (v >> 2) / kFB;
-      const int t = t0 + r, fi = MODE == kShortcut ? 2 * (f0 + s) : f0 + s;
-      const bool ok = t < a.T;
-      const bf16* src = ok ? base + (((size_t)b * a.T_pad + t) * fx + fi) * kC + q * 8 : base;
-      cp_async16(stage + G::kTileB + r * G::kXRowB + s * kC * 2 + q * 16, src, ok);
-    }
-  }
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int STRIDE, int MODE>
-__global__ void __launch_bounds__(kCThreads, 1)
-fcm_conv_kernel(ConvArgs a) {
-  using G = Geo<STRIDE, MODE>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const uint32_t s0 = smem_u32(smem);
+struct LaunchArgs {
+  const void* in;        // launch A: (B, T, 80) fp32; else (B, T, F_in, 32) bf16
+  bf16* out;             // (B, T, f_out, 32)
+  const bf16* w[12];
+  const float* aff;      // (12, 2, 32)
+  int B, T;
+};
 
-  // the weights (rows padded to kWRowB) and affines, once per block
-  for (int v = tid; v < 9 * kC * 4; v += kCThreads)
-    *reinterpret_cast<uint4*>(smem + G::kOffW + (v >> 2) * kWRowB + (v & 3) * 16) =
-        __ldg(reinterpret_cast<const uint4*>(a.w) + v);
-  if (MODE == kShortcut)
-    for (int v = tid; v < kC * 4; v += kCThreads)
-      *reinterpret_cast<uint4*>(smem + G::kOffWsc + (v >> 2) * kWRowB + (v & 3) * 16) =
-          __ldg(reinterpret_cast<const uint4*>(a.w_sc) + v);
-  float* affS = reinterpret_cast<float*>(smem + G::kOffAff);  // scale, shift (, sc scale, shift)
-  for (int v = tid; v < 2 * kC; v += kCThreads) {
-    affS[v] = a.aff[v];
-    if (MODE == kShortcut) affS[2 * kC + v] = a.aff_sc[v];
-  }
+// one item of a launch: its first frame and band start, the frames of the
+// utterance, and the utterance's (T, f_out, 32) output
+struct Item {
+  int t0, f0, T;
+  bf16* out;
+};
 
-  const int n_tt = (a.T + kTT - 1) / kTT, n_fb = a.f_out / kFB;
-  const int n_items = a.B * n_tt * n_fb;
-  // prologue: the first kStages - 1 items, one commit group each (empty
-  // groups past the end keep the count uniform)
-  int ahead = blockIdx.x;
+// this lane's roles: ldmatrix row (lane & 7) of matrix (lane >> 3), the
+// matrices being (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+// 8-15) of a 16 x 16 bf16 block; accumulator rows g, g + 8 and columns 2q,
+// 2q + 1 of each n-tile
+struct Lane {
+  int warp, lrow, lcol, g, q;
+  __device__ Lane()
+      : warp(threadIdx.x >> 5),
+        lrow((threadIdx.x & 7) + ((threadIdx.x >> 3) & 1) * 8),
+        lcol(((threadIdx.x & 31) >> 4) * 8),
+        g((threadIdx.x & 31) >> 2),
+        q(threadIdx.x & 3) {}
+};
+
+// This lane's affines of tile I (its conv's, then its shortcut's): scale
+// and shift of channels 8j + 2q + e at [k][0 or 1][2j + e].
+template <int L, int I>
+struct LaneAff {
+  static constexpr int kN = TG<L, I>::res_conv >= 0 ? 2 : 1;
+  float v[kN][2][8];
+  __device__ __forceinline__ LaneAff(const unsigned char* smem, const Lane& ln) {
+    const float* aff = reinterpret_cast<const float*>(smem + TG<L, I>::aff_at);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s, ahead += gridDim.x) {
-    if (ahead < n_items) stage_item<STRIDE, MODE>(a, s0 + s * G::kStageB, ahead, n_tt, n_fb);
-    cp_async_commit();
-  }
-
-  // ldmatrix roles: this lane gives row (lane & 7) of matrix (lane >> 3);
-  // matrices 0-3 are (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15),
-  // (8-15, 8-15) of a 16 x 16 bf16 block
-  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lcol = (lane >> 4) * 8;
-  const int g = lane >> 2, q = lane & 3;   // accumulator rows g, g + 8; cols 2q, 2q + 1
-  const int fl = warp;                     // this warp's output frequency in the band
-  const uint32_t w_lane = s0 + G::kOffW + lrow * kWRowB + lcol * 2;
-  uint32_t* xpose = reinterpret_cast<uint32_t*>(smem + G::kOffXpose) + warp * 16 * 16;
-
-  int slot = 0;   // the stage of `item`
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ahead += gridDim.x) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of `item` have landed
-    // everyone's have, and every warp is done with the previous item, so
-    // its stage takes the item kStages - 1 ahead
-    __syncthreads();
-    if (ahead < n_items)
-      stage_item<STRIDE, MODE>(a, s0 + ((slot + kStages - 1) % kStages) * G::kStageB, ahead,
-                               n_tt, n_fb);
-    cp_async_commit();
-
-    const int fb = item % n_fb, rest = item / n_fb;
-    const int t0 = (rest % n_tt) * kTT, b = rest / n_tt, f = fb * kFB + fl;
-    const unsigned char* stage_p = smem + slot * G::kStageB;
-    const uint32_t stage = s0 + slot * G::kStageB;
-    const uint32_t a_lane = stage + lrow * G::kRowB + STRIDE * fl * kC * 2 + lcol * 2;
-
-    // products: frames t0 .. t0 + 31 (two 16-row halves) x 32 channels
-    float acc[2][4][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < kN; ++k)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
-#pragma unroll
-    for (int df = 0; df < 3; ++df) {
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt) {
-        const int tap = df * 3 + dt;
-#pragma unroll
-        for (int kc = 0; kc < 2; ++kc) {
-          uint32_t bw[4][2];
-          load_b(bw, w_lane + (tap * kC + kc * 16) * kWRowB);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            // output frame t0 + 16h + i reads tile row 16h + i + dt
-            uint32_t af[4];
-            ldsm_x4(af, a_lane + (h * 16 + dt) * G::kRowB + df * kC * 2 + kc * 32);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) mma16816(acc[h][j], af, bw[j][0], bw[j][1]);
-          }
+        for (int e = 0; e < 2; ++e) {
+          v[k][0][2 * j + e] = aff[2 * kC * k + 8 * j + 2 * ln.q + e];
+          v[k][1][2 * j + e] = aff[2 * kC * k + kC + 8 * j + 2 * ln.q + e];
         }
-      }
-    }
+  }
+};
 
-    // epilogue per 16-frame half, from the accumulator fragments
+// The epilogue of one m-tile `mt` of tile I: the affine, the residual,
+// the ReLU, the zero edges, a bf16x2 store per row and channel pair.
+// `res`: the residual tile's shared address (the ring stage for tile 0).
+template <int L, int I>
+__device__ __forceinline__ void epilogue(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                         const LaneAff<L, I>& aff, const float (&acc)[4][4],
+                                         int mt, uint32_t res, const Item& it) {
+  using O = TG<L, I>;
+  unsigned char* out = smem + O::at;
+  float sc[4][4];
+  if constexpr (O::res >= 0 && O::res_conv >= 0) {
+    // the 1x1 stride-(2,1) shortcut over the same positions: output (r, s)
+    // reads the block input at frame r + XR, frequency 2 (scale f0 + off + s)
+    using R = TG<L, O::res>;
+    constexpr int XR = R::halo - O::halo, XS = 2 * O::off - R::off;
+    static_assert(plan(L).f_out / plan(L).fb == 1 || R::scale == 2 * O::scale, "");
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int tb = t0 + h * 16;
-      if (tb >= a.T) break;   // warp-uniform
-      float sc[4][4];
-      if (MODE == kShortcut) {
-        // 1x1 stride-(2,1) shortcut over the same 16 frames
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    int p = mt * 16 + ln.lrow;
+    p = p < O::np ? p : O::np - 1;
+    const int r = p % O::rows, s = O::lo + p / O::rows;
+    const uint32_t x_lane = res + (r + XR) * R::rowB + (2 * s + XS) * kC * 2 + ln.lcol * 2;
+    const uint32_t wsc_lane = s0 + O::wsc_at + ln.lrow * kWRowB + ln.lcol * 2;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-        const uint32_t x_lane = stage + G::kTileB + (h * 16 + lrow) * G::kXRowB +
-                                fl * kC * 2 + lcol * 2;
-        const uint32_t wsc_lane = s0 + G::kOffWsc + lrow * kWRowB + lcol * 2;
+    for (int kc = 0; kc < 2; ++kc) {
+      uint32_t af[4], bw[4][2];
+      ldsm_x4(af, x_lane + kc * 32);
+      load_b(bw, wsc_lane + kc * 16 * kWRowB);
 #pragma unroll
-        for (int kc = 0; kc < 2; ++kc) {
-          uint32_t af[4], bw[4][2];
-          ldsm_x4(af, x_lane + kc * 32);
-          load_b(bw, wsc_lane + kc * 16 * kWRowB);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma16816(sc[j], af, bw[j][0], bw[j][1]);
-        }
-      }
-      // rows g + 8 * e2 of the half, channels c, c + 1 = 8j + 2q, + 1
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const int r = g + 8 * e2;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 8 * j + 2 * q;
-          float v0 = acc[h][j][2 * e2] * affS[c] + affS[kC + c];
-          float v1 = acc[h][j][2 * e2 + 1] * affS[c + 1] + affS[kC + c + 1];
-          if (MODE == kShortcut) {
-            v0 += sc[j][2 * e2] * affS[2 * kC + c] + affS[3 * kC + c];
-            v1 += sc[j][2 * e2 + 1] * affS[2 * kC + c + 1] + affS[3 * kC + c + 1];
-          }
-          if (MODE == kIdentity) {
-            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-                stage_p + G::kTileB + (h * 16 + r) * G::kXRowB + fl * kC * 2 + c * 2);
-            v0 += __bfloat162float(x.x);
-            v1 += __bfloat162float(x.y);
-          }
-          const __nv_bfloat162 o = __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          // row r, 16-byte chunk j, swizzled by (r >> 1) & 3
-          xpose[r * 16 + ((j ^ ((r >> 1) & 3)) << 2) + q] = *reinterpret_cast<const uint32_t*>(&o);
-        }
-      }
-      __syncwarp();
-      // 16 rows x 4 chunks: 16 bytes (8 channels) a lane, two rounds
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int cidx = lane + 32 * k, r = cidx >> 2, p = cidx & 3;
-        const uint4 v = *reinterpret_cast<const uint4*>(xpose + r * 16 + ((p ^ ((r >> 1) & 3)) << 2));
-        const int t = tb + r;
-        if (t < a.T)
-          *reinterpret_cast<uint4*>(a.out + (((size_t)b * a.out_ts + t) * a.f_out + f) * kC + p * 8) = v;
-      }
-      __syncwarp();
+      for (int j = 0; j < 4; ++j) mma16816(sc[j], af, bw[j][0], bw[j][1]);
     }
+  }
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int p = mt * 16 + ln.g + 8 * e2;
+    if (p >= O::np) continue;
+    const int r = p % O::rows, s = O::lo + p / O::rows;
+    const int t = it.t0 - O::halo + r, f = O::scale * it.f0 + O::off + s;
+    const bool valid = t >= 0 && t < it.T && f >= 0 && f < O::width;
+    // the launch's last tile goes straight to device memory (frames past
+    // T are not stored), the others to their shared tile
+    constexpr bool kOut = I + 1 == plan(L).n_tiles;
+    if (kOut && t >= it.T) continue;
+    unsigned char* dst = kOut ? reinterpret_cast<unsigned char*>(
+                                    it.out + ((size_t)t * plan(L).f_out + f) * kC)
+                              : out + r * O::rowB + s * kC * 2;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 8 * j + 2 * ln.q;
+      float v0 = acc[j][2 * e2] * aff.v[0][0][2 * j] + aff.v[0][1][2 * j];
+      float v1 = acc[j][2 * e2 + 1] * aff.v[0][0][2 * j + 1] + aff.v[0][1][2 * j + 1];
+      if constexpr (O::res >= 0 && O::res_conv >= 0) {
+        v0 += sc[j][2 * e2] * aff.v[1][0][2 * j] + aff.v[1][1][2 * j];
+        v1 += sc[j][2 * e2 + 1] * aff.v[1][0][2 * j + 1] + aff.v[1][1][2 * j + 1];
+      }
+      if constexpr (O::res >= 0 && O::res_conv < 0) {
+        using R = TG<L, O::res>;
+        constexpr int XR = R::halo - O::halo, XS = O::off - R::off;
+        static_assert(plan(L).f_out / plan(L).fb == 1 || R::scale == O::scale, "");
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+            smem + (res - s0) + (r + XR) * R::rowB + (s + XS) * kC * 2 + c * 2);
+        v0 += __bfloat162float(x.x);
+        v1 += __bfloat162float(x.y);
+      }
+      *reinterpret_cast<uint32_t*>(dst + c * 2) =
+          valid ? pack_bf16(fmaxf(v0, 0.f), fmaxf(v1, 0.f)) : 0u;
+    }
+  }
+}
+
+// M m-tiles of tile I (I >= 1, a 32 -> 32 3x3 conv), mt0, mt0 + kWarps, ...,
+// through one pass of the taps: a tap's weight fragments are loaded once
+// for all M. Output (r, s) tap (df, dt) reads tile I - 1 (at shared address
+// `in`) at (r + dt, stride * s + df + kInS0).
+template <int L, int I, int M>
+__device__ __forceinline__ void conv_group(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                           uint32_t in, uint32_t res, int mt0, const Item& it) {
+  constexpr int kWarps = plan(L).warps;
+  using O = TG<L, I>;
+  using P = TG<L, I - 1>;
+  constexpr int kStride = P::width / O::width;
+  constexpr int kInS0 = kStride * O::off - 1 - P::off;
+  static_assert(P::halo == O::halo + 1, "a 3x3 conv needs one more frame each side");
+  static_assert(plan(L).f_out / plan(L).fb == 1 || P::scale == kStride * O::scale, "");
+  static_assert(kStride * O::lo + kInS0 >= 0 && kStride * (O::hi - 1) + kInS0 + 2 < P::slots,
+                "the conv reads past its input tile");
+  const uint32_t w_lane = s0 + O::w_at + ln.lrow * kWRowB + ln.lcol * 2;
+  uint32_t a_at[M];
+  float acc[M][4][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    int p = (mt0 + m * kWarps) * 16 + ln.lrow;
+    p = p < O::np ? p : O::np - 1;
+    const int r = p % O::rows, s = O::lo + p / O::rows;
+    a_at[m] = in + r * P::rowB + (kStride * s + kInS0) * kC * 2 + ln.lcol * 2;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  }
+#pragma unroll
+  for (int df = 0; df < 3; ++df) {
+#pragma unroll
+    for (int dt = 0; dt < 3; ++dt) {
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t bw[4][2];
+        load_b(bw, w_lane + ((df * 3 + dt) * kC + kc * 16) * kWRowB);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          uint32_t af[4];
+          ldsm_x4(af, a_at[m] + dt * P::rowB + df * kC * 2 + kc * 32);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma16816(acc[m][j], af, bw[j][0], bw[j][1]);
+        }
+      }
+    }
+  }
+  const LaneAff<L, I> aff(smem, ln);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+    epilogue<L, I>(smem, s0, ln, aff, acc[m], mt0 + m * kWarps, res, it);
+}
+
+// N m-tiles of tile I for this warp, mt0, mt0 + kWarps, ..., in groups of
+// at most kMG
+template <int L, int I, int N>
+__device__ __forceinline__ void conv_warp(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                          uint32_t in, uint32_t res, int mt0, const Item& it) {
+  constexpr int kWarps = plan(L).warps;
+  if constexpr (N > 0) {
+    constexpr int M = N < kMG ? N : kMG;
+    conv_group<L, I, M>(smem, s0, ln, in, res, mt0, it);
+    conv_warp<L, I, N - M>(smem, s0, ln, in, res, mt0 + M * kWarps, it);
+  }
+}
+
+// Tile I from tile I - 1: warp w takes m-tiles w, w + kWarps, ...; the
+// count of each warp is a compile-time constant, so the tap loop has no
+// branch.
+template <int L, int I>
+__device__ __forceinline__ void conv_tile(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                          uint32_t in, uint32_t res, const Item& it) {
+  constexpr int kWarps = plan(L).warps;
+  using O = TG<L, I>;
+  constexpr int kFull = O::nmt / kWarps, kRem = O::nmt % kWarps;
+  if constexpr (kRem > 0) {
+    if (ln.warp < kRem) {
+      conv_warp<L, I, kFull + 1>(smem, s0, ln, in, res, ln.warp, it);
+      return;
+    }
+  }
+  conv_warp<L, I, kFull>(smem, s0, ln, in, res, ln.warp, it);
+}
+
+// conv0 (launch A, tile 1) from the fp32 feature tile at `feats`: K = 9
+// taps of one channel, padded to one k16 step. Each lane builds its A
+// fragment (rows g, g + 8; taps 2q, 2q + 1 and 2q + 8, 2q + 9) from the
+// tile, rounded to bf16; `b0` holds conv0's B fragments.
+__device__ __forceinline__ void conv0_tile(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                           const float* feats, const uint32_t (&b0)[4][2],
+                                           const Item& it) {
+  constexpr int kWarps = plan(0).warps;
+  using O = TG<0, 1>;
+  using P = TG<0, 0>;
+  constexpr int kRowF = P::rowB / 4;
+  constexpr int kInS0 = O::off - 1 - P::off;   // both at 80 bins
+  static_assert(P::halo == O::halo + 1 && O::hi - 1 + kInS0 + 2 < P::slots, "");
+  const LaneAff<0, 1> aff(smem, ln);
+  for (int mt = ln.warp; mt < O::nmt; mt += kWarps) {
+    uint32_t a[4];
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      int p = mt * 16 + ln.g + 8 * e2;
+      p = p < O::np ? p : O::np - 1;
+      const int r = p % O::rows, s = O::lo + p / O::rows;
+      // tap k = df * 3 + dt reads (r + dt, s + df + kInS0)
+      const float* src = feats + r * kRowF + s + kInS0;
+      const int k0 = 2 * ln.q, k1 = 2 * ln.q + 1;
+      a[e2] = pack_bf16(src[(k0 % 3) * kRowF + k0 / 3], src[(k1 % 3) * kRowF + k1 / 3]);
+      a[2 + e2] = pack_bf16(ln.q == 0 ? src[2 * kRowF + 2] : 0.f, 0.f);   // tap 8
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      mma16816(acc[j], a, b0[j][0], b0[j][1]);
+    }
+    epilogue<0, 1>(smem, s0, ln, aff, acc, mt, 0, it);
+  }
+}
+
+// The copies of tile 0 (the launch's input) of item (b, t0, f0) into a
+// ring stage: slots [lo, hi), zero-filled outside [0, T) and the layer.
+template <int L>
+__device__ __forceinline__ void stage_input(const LaunchArgs& a, uint32_t stage, int b, int t0,
+                                            int f0) {
+  constexpr int kThreads = 32 * plan(L).warps;
+  using P = TG<L, 0>;
+  if constexpr (P::feats) {
+    // 28 bins from 4 (5 f0 - 1): whole 16-byte chunks of 4 bins, each
+    // inside [0, 80) or outside
+    const float* x = static_cast<const float*>(a.in);
+    constexpr int kCh = P::slots / 4;
+    for (int v = threadIdx.x; v < P::rows * kCh; v += kThreads) {
+      const int ch = v % kCh, r = v / kCh;
+      const int t = t0 - P::halo + r, bin = P::scale * f0 + P::off + 4 * ch;
+      const bool ok = t >= 0 && t < a.T && bin >= 0 && bin < kF0;
+      cp_async16(stage + r * P::rowB + ch * 16,
+                 ok ? x + ((size_t)b * a.T + t) * kF0 + bin : x, ok);
+    }
+  } else {
+    const bf16* x = static_cast<const bf16*>(a.in);
+    constexpr int S = P::hi - P::lo;
+    for (int v = threadIdx.x; v < P::rows * S * 4; v += kThreads) {
+      const int qq = v & 3, s = P::lo + (v >> 2) % S, r = (v >> 2) / S;
+      const int t = t0 - P::halo + r, f = P::scale * f0 + P::off + s;
+      const bool ok = t >= 0 && t < a.T && f >= 0 && f < P::width;
+      cp_async16(stage + r * P::rowB + s * kC * 2 + qq * 16,
+                 ok ? x + (((size_t)b * a.T + t) * P::width + f) * kC + qq * 8 : x, ok);
+    }
+  }
+}
+
+// zero the slots outside [lo, hi) of tile I (never written afterwards)
+template <int L, int I>
+__device__ __forceinline__ void zero_pads(unsigned char* tile) {
+  using O = TG<L, I>;
+  if constexpr (!O::feats && (O::lo != 0 || O::hi != O::slots)) {
+    constexpr int kThreads = 32 * plan(L).warps;
+    constexpr int kPad = O::slots - (O::hi - O::lo);
+    for (int v = threadIdx.x; v < O::rows * kPad * 4; v += kThreads) {
+      const int qq = v & 3, k = (v >> 2) % kPad, r = (v >> 2) / kPad;
+      const int s = k < O::lo ? k : O::hi + (k - O::lo);
+      *reinterpret_cast<uint4*>(tile + r * O::rowB + s * kC * 2 + qq * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+// the weights (rows padded to kWRowB) and affines of tile I, once per block
+template <int L, int I>
+__device__ __forceinline__ void stage_weights(unsigned char* smem, const LaunchArgs& a) {
+  constexpr int kThreads = 32 * plan(L).warps;
+  using O = TG<L, I>;
+  if constexpr (O::conv > 0) {
+    constexpr int kRows = w_bytes(O::conv) / kWRowB;
+    const uint4* w = reinterpret_cast<const uint4*>(a.w[O::conv]);
+    for (int v = threadIdx.x; v < kRows * 4; v += kThreads)
+      *reinterpret_cast<uint4*>(smem + O::w_at + (v >> 2) * kWRowB + (v & 3) * 16) =
+          __ldg(w + v);
+  }
+  if constexpr (O::res_conv >= 0) {
+    const uint4* w = reinterpret_cast<const uint4*>(a.w[O::res_conv]);
+    for (int v = threadIdx.x; v < kC * 4; v += kThreads)
+      *reinterpret_cast<uint4*>(smem + O::wsc_at + (v >> 2) * kWRowB + (v & 3) * 16) =
+          __ldg(w + v);
+  }
+  float* aff = reinterpret_cast<float*>(smem + O::aff_at);
+  for (int v = threadIdx.x; v < 2 * kC; v += kThreads) {
+    aff[v] = a.aff[O::conv * 2 * kC + v];
+    if constexpr (O::res_conv >= 0) aff[2 * kC + v] = a.aff[O::res_conv * 2 * kC + v];
+  }
+}
+
+template <int L, int I>
+__device__ __forceinline__ void setup_tiles(unsigned char* smem, const LaunchArgs& a) {
+  if constexpr (I < plan(L).n_tiles) {
+    using O = TG<L, I>;
+    if constexpr (I == 0) {
+      for (int k = 0; k < plan(L).stages; ++k) zero_pads<L, 0>(smem + O::at + k * O::bytes);
+    } else {
+      stage_weights<L, I>(smem, a);
+      if constexpr (I + 1 < plan(L).n_tiles) zero_pads<L, I>(smem + O::at);
+    }
+    setup_tiles<L, I + 1>(smem, a);
+  }
+}
+
+// tiles I.. of one item, a block barrier between two; `stage`: the ring
+// stage that holds tile 0
+template <int L, int I>
+__device__ __forceinline__ void run_tiles(unsigned char* smem, uint32_t s0, const Lane& ln,
+                                          uint32_t stage, const uint32_t (&b0)[4][2],
+                                          const Item& it) {
+  if constexpr (I < plan(L).n_tiles) {
+    using O = TG<L, I>;
+    if constexpr (L == 0 && I == 1) {
+      conv0_tile(smem, s0, ln, reinterpret_cast<const float*>(smem + (stage - s0)), b0, it);
+    } else {
+      const uint32_t in = I == 1 ? stage : s0 + TG<L, I - 1>::at;
+      const uint32_t res = O::res == 0 ? stage : s0 + TG<L, O::res < 0 ? 0 : O::res>::at;
+      conv_tile<L, I>(smem, s0, ln, in, res, it);
+    }
+    if constexpr (I + 1 < plan(L).n_tiles) {
+      __syncthreads();
+      run_tiles<L, I + 1>(smem, s0, ln, stage, b0, it);
+    }
+  }
+}
+
+template <int L>
+__global__ void __launch_bounds__(32 * plan(L).warps, plan(L).blocks)
+    fcm_launch_kernel(const LaunchArgs a) {
+  constexpr int kN = plan(L).n_tiles, kTT = plan(L).tt, kFB = plan(L).fb;
+  constexpr int kFout = plan(L).f_out, kStages = plan(L).stages;
+  using O = TG<L, kN - 1>;
+  static_assert(O::halo == 0 && O::scale == 1 && O::off == 0 && O::slots == kFB &&
+                    O::width == kFout && kFout % kFB == 0, "");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const Lane ln;
+
+  setup_tiles<L, 0>(smem, a);
+  uint32_t b0[4][2] = {};
+  if constexpr (L == 0) {
+    // conv0's B fragments: k = tap (rows 9-15 zero), n = 8j + g
+    const bf16* w0 = a.w[0];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 8 * j + ln.g, k = 2 * ln.q;
+      b0[j][0] = pack_bf16(__bfloat162float(w0[k * kC + n]),
+                           __bfloat162float(w0[(k + 1) * kC + n]));
+      b0[j][1] = pack_bf16(ln.q == 0 ? __bfloat162float(w0[8 * kC + n]) : 0.f, 0.f);
+    }
+  }
+
+  const int n_tt = (a.T + kTT - 1) / kTT, n_fb = kFout / kFB;
+  const int n_items = a.B * n_tt * n_fb;
+  constexpr int kStageB = TG<L, 0>::bytes;
+  const uint32_t ring = s0 + TG<L, 0>::at;
+  auto decode = [&](int item, int& b, int& t0, int& f0) {
+    const int rest = item / n_fb;
+    f0 = (item % n_fb) * kFB;
+    t0 = (rest % n_tt) * kTT;
+    b = rest / n_tt;
+  };
+  auto item_of = [&](int item) {
+    int b, t0, f0;
+    decode(item, b, t0, f0);
+    return Item{t0, f0, a.T, a.out + (size_t)b * a.T * kFout * kC};
+  };
+  auto stage = [&](int item, uint32_t at) {
+    int b, t0, f0;
+    decode(item, b, t0, f0);
+    stage_input<L>(a, at, b, t0, f0);
+    cp_async_commit();
+  };
+  if (kStages == 2 && blockIdx.x < n_items) stage(blockIdx.x, ring);
+
+  int slot = 0;   // the ring stage of `item`
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    if constexpr (kStages == 1) {
+      __syncthreads();   // every warp is done with the item before's input
+      stage(item, ring);
+    }
+    cp_async_wait_all();   // this thread's copies of `item` have landed
+    // everyone's have, every warp is done with the item before (its stage
+    // takes the next item) and the setup is visible
+    __syncthreads();
+    if (kStages == 2 && item + (int)gridDim.x < n_items)
+      stage(item + gridDim.x, ring + (slot ^ 1) * kStageB);
+    run_tiles<L, 1>(smem, s0, ln, ring + slot * kStageB, b0, item_of(item));
     slot = (slot + 1) % kStages;
   }
-  cp_async_wait<0>();
+  cp_async_wait_all();
 }
 
 // The kernel's dynamic shared-memory limit is one setting per device for
-// the whole process, as is its occupancy. Each instance sets the limit
-// once per device, under a lock, at the one size every launch of it asks
-// for, and asks the occupancy then; launches from many threads (a server)
-// find it done.
+// the whole process, as is its occupancy. Each launch's kernel sets the
+// limit once per device, under a lock, and asks the occupancy then;
+// launches from many threads (a server) find it done.
 std::mutex g_setup_mu;
 
-template <int STRIDE, int MODE>
-cudaError_t conv_setup(int* blocks_per_sm, int* n_sms) {
+template <int L>
+cudaError_t launch_setup(int* blocks_per_sm, int* n_sms) {
   static bool done[kMaxDevices] = {};
   static int bps[kMaxDevices] = {}, sms[kMaxDevices] = {};
   int dev = 0;
@@ -459,12 +743,11 @@ cudaError_t conv_setup(int* blocks_per_sm, int* n_sms) {
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> hold(g_setup_mu);
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(fcm_conv_kernel<STRIDE, MODE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Geo<STRIDE, MODE>::kSmem);
+    err = cudaFuncSetAttribute(fcm_launch_kernel<L>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(L));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &bps[dev], fcm_conv_kernel<STRIDE, MODE>, kCThreads, Geo<STRIDE, MODE>::kSmem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps[dev], fcm_launch_kernel<L>,
+                                                          32 * plan(L).warps, smem_bytes(L));
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -475,58 +758,79 @@ cudaError_t conv_setup(int* blocks_per_sm, int* n_sms) {
   return cudaSuccess;
 }
 
-template <int STRIDE, int MODE>
-cudaError_t launch_conv(const ConvArgs& a, int grid, cudaStream_t stream) {
+template <int L>
+cudaError_t launch(const LaunchArgs& a, int grid, cudaStream_t stream) {
   int bps = 0, sms = 0;
-  cudaError_t err = conv_setup<STRIDE, MODE>(&bps, &sms);
+  cudaError_t err = launch_setup<L>(&bps, &sms);
   if (err != cudaSuccess) return err;
   if (bps < 1) return cudaErrorInvalidConfiguration;
   // the kernel's item index is an int
-  if (grid < 1 || (long long)a.B * ((a.T + kTT - 1) / kTT) * (a.f_out / kFB) > 0x7fffffff)
-    return cudaErrorInvalidValue;
-  fcm_conv_kernel<STRIDE, MODE><<<grid, kCThreads, Geo<STRIDE, MODE>::kSmem, stream>>>(a);
+  const long long items = (long long)a.B * ((a.T + plan(L).tt - 1) / plan(L).tt) *
+                          (plan(L).f_out / plan(L).fb);
+  if (grid < 1 || items > 0x7fffffff) return cudaErrorInvalidValue;
+  fcm_launch_kernel<L><<<grid, 32 * plan(L).warps, smem_bytes(L), stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Workspace, in bf16 elements: one (B, T_pad, 80, 32) buffer, three at
-// F = 40 and three at F = 20. The wrapper allocates it from this count.
-extern "C" long long vpr_fcm_workspace_elems(int B, int T_pad) {
-  return (long long)B * T_pad * kC * (80 + 3 * 40 + 3 * 20);
+// Workspace, in bf16 elements: the outputs of launches A and B (F = 40)
+// and C (F = 20). The wrapper allocates it from this count.
+extern "C" long long vpr_fcm_workspace_elems(int B, int T) {
+  return (long long)B * T * kC * (40 + 40 + 20);
 }
 
 // What the wrapper sizes the persistent grids from: the resident blocks
-// per SM of the conv kernel's instances (stride 2; stride 1 with the
-// shortcut; stride 1; stride 1 with the identity) into out[0..3], the SM
-// count into out[4], and the item's time tile and frequency band (kTT,
-// kFB) into out[5..6].
+// per SM of each launch's kernel into out[0..3] and the SM count into
+// out[4].
 extern "C" int vpr_fcm_occupancy(int* out) {
-  cudaError_t err = conv_setup<2, kPlain>(&out[0], &out[4]);
-  if (err == cudaSuccess) err = conv_setup<1, kShortcut>(&out[1], &out[4]);
-  if (err == cudaSuccess) err = conv_setup<1, kPlain>(&out[2], &out[4]);
-  if (err == cudaSuccess) err = conv_setup<1, kIdentity>(&out[3], &out[4]);
-  out[5] = kTT;
-  out[6] = kFB;
+  cudaError_t err = launch_setup<0>(&out[0], &out[4]);
+  if (err == cudaSuccess) err = launch_setup<1>(&out[1], &out[4]);
+  if (err == cudaSuccess) err = launch_setup<2>(&out[2], &out[4]);
+  if (err == cudaSuccess) err = launch_setup<3>(&out[3], &out[4]);
   return (int)err;
 }
 
+// The plan as the kernel was built with it, for the wrapper to check
+// against its own: per launch tt, fb, f_out, n_tiles, then per tile conv,
+// halo, scale, off, slots, lo, hi, width, res, res_conv. Returns the count
+// written (at most `cap`), or -1 if `cap` is too small.
+extern "C" int vpr_fcm_plan(int* out, int cap) {
+  int n = 0;
+  for (int l = 0; l < kLaunches; ++l) {
+    const Plan p = plan(l);
+    const int head[4] = {p.tt, p.fb, p.f_out, p.n_tiles};
+    for (int v : head) {
+      if (n >= cap) return -1;
+      out[n++] = v;
+    }
+    for (int i = 0; i < p.n_tiles; ++i) {
+      const Tile& t = p.t[i];
+      const int row[10] = {t.conv, t.halo, t.scale, t.off, t.slots,
+                           t.lo, t.hi, t.width, t.res, t.res_conv};
+      for (int v : row) {
+        if (n >= cap) return -1;
+        out[n++] = v;
+      }
+    }
+  }
+  return n;
+}
+
 extern "C" int vpr_fcm(FcmParams p, void* stream_) {
-  if (p.B <= 0 || p.T <= 0 || p.T_pad < p.T || p.T_pad % kTT != 0)
-    return (int)cudaErrorInvalidValue;
+  if (p.B <= 0 || p.T <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
-  const size_t per = (size_t)p.B * p.T_pad * kC;   // elements per frequency
-  bf16* a80 = p.ws;
-  bf16* y40 = a80 + per * 80;
-  bf16* x40a = y40 + per * 40;
-  bf16* x40b = x40a + per * 40;
-  bf16* y20 = x40b + per * 40;
-  bf16* x20a = y20 + per * 20;
-  bf16* x20b = x20a + per * 20;
-  const float* aff = p.aff;
+  const size_t per = (size_t)p.B * p.T * kC;   // elements per frequency
+  bf16* ya = p.ws;
+  bf16* yb = ya + per * 40;
+  bf16* yc = yb + per * 40;
+  LaunchArgs a{};
   const bf16* w[12] = {p.w0, p.w1, p.w2, p.w3, p.w4, p.w5,
                        p.w6, p.w7, p.w8, p.w9, p.w10, p.w11};
-  auto A = [&](int i) { return aff + i * 2 * kC; };
+  for (int i = 0; i < 12; ++i) a.w[i] = w[i];
+  a.aff = p.aff;
+  a.B = p.B;
+  a.T = p.T;
   int n_marked = 0;
   auto mark = [&]() {
     return p.events ? cudaEventRecord(p.events[n_marked++], stream) : cudaSuccess;
@@ -534,63 +838,22 @@ extern "C" int vpr_fcm(FcmParams p, void* stream_) {
   cudaError_t err;
 #define VPR_TRY(x) do { err = (x); if (err != cudaSuccess) return (int)err; } while (0)
   VPR_TRY(mark());
-  {
-    const long long n = (long long)p.B * p.T * kF0;
-    fcm_conv0_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-        p.x, a80, w[0], A(0), p.B, p.T, p.T_pad);
-    VPR_TRY(cudaGetLastError());
-    VPR_TRY(mark());
-  }
-  auto conv = [&](const bf16* in, int f_in, bf16* out, int f_out, int i) {
-    ConvArgs a{};
-    a.in = in; a.out = out; a.w = w[i]; a.aff = A(i);
-    a.B = p.B; a.f_in = f_in; a.f_out = f_out; a.out_ts = p.T_pad; a.T = p.T;
-    a.T_pad = p.T_pad;
-    return a;
-  };
-  // block 0 (F 80 -> 40)
-  VPR_TRY((launch_conv<2, kPlain>(conv(a80, 80, y40, 40, 1), p.grid[0], stream)));
+  a.in = p.x;
+  a.out = ya;
+  VPR_TRY(launch<0>(a, p.grid[0], stream));
   VPR_TRY(mark());
-  {
-    ConvArgs a = conv(y40, 40, x40a, 40, 2);
-    a.sc_in = a80; a.w_sc = w[3]; a.aff_sc = A(3);
-    VPR_TRY((launch_conv<1, kShortcut>(a, p.grid[1], stream)));
-    VPR_TRY(mark());
-  }
-  // block 1
-  VPR_TRY((launch_conv<1, kPlain>(conv(x40a, 40, y40, 40, 4), p.grid[2], stream)));
+  a.in = ya;
+  a.out = yb;
+  VPR_TRY(launch<1>(a, p.grid[1], stream));
   VPR_TRY(mark());
-  {
-    ConvArgs a = conv(y40, 40, x40b, 40, 5);
-    a.res = x40a;
-    VPR_TRY((launch_conv<1, kIdentity>(a, p.grid[3], stream)));
-    VPR_TRY(mark());
-  }
-  // block 2 (F 40 -> 20)
-  VPR_TRY((launch_conv<2, kPlain>(conv(x40b, 40, y20, 20, 6), p.grid[4], stream)));
+  a.in = yb;
+  a.out = yc;
+  VPR_TRY(launch<2>(a, p.grid[2], stream));
   VPR_TRY(mark());
-  {
-    ConvArgs a = conv(y20, 20, x20a, 20, 7);
-    a.sc_in = x40b; a.w_sc = w[8]; a.aff_sc = A(8);
-    VPR_TRY((launch_conv<1, kShortcut>(a, p.grid[5], stream)));
-    VPR_TRY(mark());
-  }
-  // block 3
-  VPR_TRY((launch_conv<1, kPlain>(conv(x20a, 20, y20, 20, 9), p.grid[6], stream)));
+  a.in = yc;
+  a.out = p.out;
+  VPR_TRY(launch<3>(a, p.grid[3], stream));
   VPR_TRY(mark());
-  {
-    ConvArgs a = conv(y20, 20, x20b, 20, 10);
-    a.res = x20a;
-    VPR_TRY((launch_conv<1, kIdentity>(a, p.grid[7], stream)));
-    VPR_TRY(mark());
-  }
-  // final conv (F 20 -> 10) straight into the (B, T, 320) output
-  {
-    ConvArgs a = conv(x20b, 20, p.out, 10, 11);
-    a.out_ts = p.T;
-    VPR_TRY((launch_conv<2, kPlain>(a, p.grid[8], stream)));
-    VPR_TRY(mark());
-  }
 #undef VPR_TRY
   return (int)cudaSuccess;
 }

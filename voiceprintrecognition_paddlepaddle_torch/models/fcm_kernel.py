@@ -14,12 +14,21 @@ shortcuts) and a final stride-2 3x3 conv.
   every conv ('same' zero padding at the time and frequency edges).
 - ``fcm_fused`` is the wrapper: the CUDA kernel on a CUDA tensor (with a
   launch counter), the plain version on a CPU tensor.
-- ``fcm_stage_times`` times each of the kernel's launches with CUDA
-  events; ``fcm_launch_costs`` gives the bytes each launch's design moves
-  and the operations it does, for the rates beside those times.
-- ``fcm_grids`` sizes the persistent grid of each conv launch from the
-  card's resident blocks (``fcm_occupancy``), and the wrapper passes those
-  grids to the kernel.
+- ``FCM_LAUNCHES`` is the kernel's plan: four launches, one per residual
+  block (conv0 in the first, c11 in the last). Each walks items of a time
+  tile by a band of output frequencies and keeps the block's
+  intermediates in shared memory; its tiles (``FcmTile``) say which
+  frames and frequencies of each layer an item holds, halos included.
+  The CUDA source holds the same table; ``fcm_occupancy`` checks the two
+  agree when it first asks the card.
+- ``fcm_stage_times`` times each launch with CUDA events;
+  ``fcm_launch_costs`` gives the bytes each launch moves (its input read
+  and its output written once), the function's operations and the
+  design's (halos and ragged m-tiles included), for the rates beside
+  those times.
+- ``fcm_grids`` sizes the persistent grid of each launch from the card's
+  resident blocks (``fcm_occupancy``), and the wrapper passes those grids
+  to the kernel.
 
 The embed path uses the kernel for buckets of ``FCM_MIN_T`` frames and
 more, as the JAX package does (``pallas_campplus.py:88``); shorter
@@ -27,6 +36,7 @@ buckets keep the model's plain FCM.
 """
 
 import ctypes
+from collections import namedtuple
 from functools import lru_cache
 
 import torch
@@ -36,15 +46,13 @@ from .layers import bn_affine
 
 __all__ = ["pack_fcm", "fcm_reference", "fcm_fused", "fcm_supported",
            "fcm_stage_times", "fcm_launch_costs", "fcm_occupancy",
-           "fcm_conv_items", "persistent_grid", "fcm_grids", "FCM_LAUNCHES",
+           "fcm_items", "persistent_grid", "fcm_grids", "FCM_LAUNCHES",
            "FCM_MIN_T", "FCM_MAX_FRAMES"]
 
 F_IN = 80                 # input mel bins (the kernel is built for them)
 FCM_DIM = 320             # 32 channels x 10 frequencies
 FCM_MIN_T = 1000          # frames from which the embed path takes the kernel
 FCM_MAX_FRAMES = 6000     # nominal, as the JAX package's (predict's cap rules)
-_TIME_TILE = 32           # csrc/fcm.cu kTT (fcm_occupancy checks both)
-_FREQ_BAND = 10           # csrc/fcm.cu kFB: output frequencies per item
 _C = 32
 _BF16 = torch.bfloat16
 
@@ -66,49 +74,84 @@ _SPECS = [
 ]
 
 
-# The launches of csrc/fcm.cu, in order: (name, the conv kernel's instance
-# (a key of fcm_occupancy; None for conv0, which has its own kernel),
-# output frequencies, K of the product per output (input channels x taps,
-# the 1x1 shortcut's 32 added where it runs in the same launch), units
-# read, units written).
-# A unit is one frequency of 32 bf16 channels over every frame, 64 bytes a
-# frame; conv0 reads the fp32 features (320 bytes a frame: 5 units). The
-# launches of c2 and c7 also read their shortcut's input at the even
-# frequencies, those of c5 and c10 the identity residual.
+# One tile of a launch: for an item at frame t0 and band start f0, the
+# frames [t0 - halo, t0 + tt + halo) and the frequencies [scale * f0 + off,
+# + slots) of a layer ``width`` frequencies wide, of which slots [lo, hi)
+# are computed (or copied; the others hold zeros: frequencies outside the
+# layer in every item). conv: the packed conv that computes the tile from
+# the one before (-1: the launch's input, copied from device memory;
+# launch A's holds fp32 bins). res: the tile whose residual is added
+# before the ReLU (-1: none), res_conv its 1x1 stride-2 shortcut (-1: the
+# identity).
+FcmTile = namedtuple("FcmTile", "conv halo scale off slots lo hi width res "
+                                "res_conv")
+# One launch: name, its convs, the item's time tile ``tt`` and band of
+# ``fb`` output frequencies of ``f_out``, its tiles (first: its input,
+# last: its output), and the units it reads and writes (a unit is one
+# frequency of 32 bf16 channels over every frame, 64 bytes a frame; the
+# fp32 features are 5).
+FcmLaunch = namedtuple("FcmLaunch", "name convs tt fb f_out tiles "
+                                    "read_units write_units")
 FCM_LAUNCHES = (
-    ("conv0", None, 80, 9, 5, 80),
-    ("c1", "stride 2", 40, 288, 80, 40),
-    ("c2+sc3", "shortcut", 40, 288 + 32, 80, 40),
-    ("c4", "stride 1", 40, 288, 40, 40),
-    ("c5", "identity", 40, 288, 80, 40),
-    ("c6", "stride 2", 20, 288, 40, 20),
-    ("c7+sc8", "shortcut", 20, 288 + 32, 40, 20),
-    ("c9", "stride 1", 20, 288, 20, 20),
-    ("c10", "identity", 20, 288, 40, 20),
-    ("c11", "stride 2", 10, 288, 20, 10),
+    FcmLaunch("A", "conv0 c1 c2+sc3", 16, 10, 40, (
+        FcmTile(-1, 3, 2, -4, 28, 0, 28, 80, -1, -1),    # features, fp32
+        FcmTile(0, 2, 2, -3, 25, 0, 25, 80, -1, -1),     # conv0
+        FcmTile(1, 1, 1, -1, 12, 0, 12, 40, -1, -1),     # c1, stride 2
+        FcmTile(2, 0, 1, 0, 10, 0, 10, 40, 1, 3)), 5, 40),
+    FcmLaunch("B", "c4 c5+x", 32, 10, 40, (
+        FcmTile(-1, 2, 1, -2, 14, 0, 14, 40, -1, -1),    # A's output
+        FcmTile(4, 1, 1, -1, 12, 0, 12, 40, -1, -1),
+        FcmTile(5, 0, 1, 0, 10, 0, 10, 40, 0, -1)), 40, 40),
+    FcmLaunch("C", "c6 c7+sc8", 32, 10, 20, (
+        FcmTile(-1, 2, 2, -3, 25, 0, 25, 40, -1, -1),    # B's output
+        FcmTile(6, 1, 1, -1, 12, 0, 12, 20, -1, -1),     # c6, stride 2
+        FcmTile(7, 0, 1, 0, 10, 0, 10, 20, 0, 8)), 40, 20),
+    FcmLaunch("D", "c9 c10+x c11", 16, 10, 10, (
+        FcmTile(-1, 3, 1, -1, 22, 1, 21, 20, -1, -1),    # C's output
+        FcmTile(9, 2, 1, -1, 22, 1, 21, 20, -1, -1),
+        FcmTile(10, 1, 1, -1, 21, 1, 21, 20, 0, -1),
+        FcmTile(11, 0, 1, 0, 10, 0, 10, 10, -1, -1)), 20, 10),
 )
 _UNIT_BYTES = _C * 2      # one frequency of 32 bf16 channels, per frame
 
 
+def _taps(conv):
+    """K of conv ``conv``'s product per output: 9 for conv0, 32 for the
+    1x1 shortcuts, 288 for the 3x3 convs."""
+    return 9 if conv == 0 else _C if conv in (3, 8) else 9 * _C
+
+
+def fcm_items(b, t, launch):
+    """Work items of ``launch`` (an ``FcmLaunch``): (time tile, band,
+    utterance); a ragged last tile counts."""
+    return b * -(-t // launch.tt) * (launch.f_out // launch.fb)
+
+
 def fcm_launch_costs(b, t):
     """Per launch of the kernel at ``b`` utterances of ``t`` frames:
-    ``{"name", "bytes", "flop"}``. Bytes count each unit the launch reads
-    or writes once (``FCM_LAUNCHES``); flop is 2 x frames x output
-    frequencies x 32 channels x K."""
-    frames = b * t
-    return [{"name": name, "bytes": (r + w) * frames * _UNIT_BYTES,
-             "flop": 2 * frames * f_out * _C * k}
-            for name, _, f_out, k, r, w in FCM_LAUNCHES]
-
-
-def fcm_conv_items(b, t, f_out):
-    """Work items of one 32 -> 32 conv launch: (32-frame time tile, band
-    of 10 output frequencies, utterance)."""
-    return b * -(-t // _TIME_TILE) * (f_out // _FREQ_BAND)
+    ``{"name", "bytes", "flop", "design_flop"}``. Bytes count each unit
+    the launch reads or writes once; flop is the function's work, 2 x
+    frames x output frequencies x 32 channels x K of each conv; design_flop
+    what the kernel issues: every m-tile of 16 positions of every tile an
+    item computes, halos and ragged m-tiles included, conv0 at K = 16."""
+    out = []
+    for ln in FCM_LAUNCHES:
+        flop = design = 0
+        for tile in ln.tiles[1:]:
+            k = _taps(tile.conv) + (_C if tile.res_conv >= 0 else 0)
+            flop += 2 * b * t * tile.width * _C * k
+            positions = (ln.tt + 2 * tile.halo) * (tile.hi - tile.lo)
+            design += 2 * -(-positions // 16) * 16 * _C * (
+                16 if tile.conv == 0 else k)
+        out.append({"name": ln.name,
+                    "bytes": (ln.read_units + ln.write_units) * b * t
+                    * _UNIT_BYTES,
+                    "flop": flop, "design_flop": design * fcm_items(b, t, ln)})
+    return out
 
 
 def persistent_grid(n_items, n_sms, per_sm):
-    """Blocks of a persistent conv launch: the card's resident blocks
+    """Blocks of a persistent launch: the card's resident blocks
     (``n_sms`` x ``per_sm``), or fewer if there are fewer items."""
     if n_sms < 1 or per_sm < 1:
         raise ValueError(f"no resident block ({n_sms} SMs x {per_sm})")
@@ -116,18 +159,27 @@ def persistent_grid(n_items, n_sms, per_sm):
 
 
 def fcm_grids(b, t, occ):
-    """Blocks of each conv launch after conv0, in launch order, for ``b``
-    utterances of ``t`` frames on a card with ``occ`` (``fcm_occupancy``):
-    the grids the wrapper passes to the kernel."""
-    return [persistent_grid(fcm_conv_items(b, t, f_out), occ["sms"],
-                            occ[kind])
-            for _, kind, f_out, *_ in FCM_LAUNCHES[1:]]
+    """Blocks of each launch, in launch order, for ``b`` utterances of
+    ``t`` frames on a card with ``occ`` (``fcm_occupancy``): the grids the
+    wrapper passes to the kernel."""
+    return [persistent_grid(fcm_items(b, t, ln), occ["sms"], occ[ln.name])
+            for ln in FCM_LAUNCHES]
+
+
+def _plan_ints():
+    """``FCM_LAUNCHES`` as ``vpr_fcm_plan`` writes the kernel's plan."""
+    out = []
+    for ln in FCM_LAUNCHES:
+        out += [ln.tt, ln.fb, ln.f_out, len(ln.tiles)]
+        for tile in ln.tiles:
+            out += list(tile)
+    return out
 
 
 def fcm_occupancy(device=None):
-    """Resident blocks per SM of the conv kernel's instances on the current
-    (or given) CUDA device, as the kernel asks the runtime, and the SM
-    count: ``{"stride 2", "shortcut", "stride 1", "identity", "sms"}``."""
+    """Resident blocks per SM of each launch's kernel on the current (or
+    given) CUDA device, as the kernel asks the runtime, and the SM count:
+    ``{"A", "B", "C", "D", "sms"}``."""
     device = torch.device("cuda" if device is None else device)
     return dict(_occupancy(device.index if device.index is not None
                            else torch.cuda.current_device()))
@@ -136,14 +188,17 @@ def fcm_occupancy(device=None):
 @lru_cache(maxsize=None)
 def _occupancy(device_index):
     from .._build import check
-    out = (ctypes.c_int * 7)()
+    _, _, occ, plan = _entries()
+    want = _plan_ints()
+    got = (ctypes.c_int * (len(want) + 1))()
+    n = plan(got, len(got))
+    if list(got[:n]) != want:
+        raise RuntimeError(f"csrc/fcm.cu was built with the plan {list(got[:n])}"
+                           f"; this module sizes and checks {want}")
+    out = (ctypes.c_int * 5)()
     with torch.cuda.device(device_index):
-        check(_entries()[2](out), "vpr_fcm_occupancy")
-    if (out[5], out[6]) != (_TIME_TILE, _FREQ_BAND):
-        raise RuntimeError(f"csrc/fcm.cu has kTT={out[5]}, kFB={out[6]}; this "
-                           f"module sizes grids for {_TIME_TILE}, {_FREQ_BAND}")
-    return dict(zip(("stride 2", "shortcut", "stride 1", "identity", "sms"),
-                    out))
+        check(occ(out), "vpr_fcm_occupancy")
+    return dict(zip([ln.name for ln in FCM_LAUNCHES] + ["sms"], out))
 
 
 def fcm_supported(t, n_feats):
@@ -208,8 +263,8 @@ class _FcmParams(ctypes.Structure):
     """Mirror of ``FcmParams`` in ``csrc/fcm.cu``."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "x", "out", "ws", *(f"w{i}" for i in range(12)), "aff",
-        "events")] + [(name, ctypes.c_int) for name in ("B", "T", "T_pad")] + [
-        ("grid", ctypes.c_int * (len(FCM_LAUNCHES) - 1))]
+        "events")] + [(name, ctypes.c_int) for name in ("B", "T")] + [
+        ("grid", ctypes.c_int * len(FCM_LAUNCHES))]
 
 
 @lru_cache(maxsize=None)
@@ -225,7 +280,10 @@ def _entries():
     occ = lib.vpr_fcm_occupancy
     occ.restype = ctypes.c_int
     occ.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    return fn, ws, occ
+    plan = lib.vpr_fcm_plan
+    plan.restype = ctypes.c_int
+    plan.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    return fn, ws, occ, plan
 
 
 def fcm_fused(packed, feats):
@@ -256,7 +314,7 @@ def fcm_stage_times(packed, feats, iters=10):
         events[-1].synchronize()
         for i in range(len(FCM_LAUNCHES)):
             sums[i] += events[i].elapsed_time(events[i + 1])
-    return {name: s / iters for (name, *_), s in zip(FCM_LAUNCHES, sums)}
+    return {ln.name: s / iters for ln, s in zip(FCM_LAUNCHES, sums)}
 
 
 def _check_shape(feats):
@@ -278,16 +336,15 @@ def _launch(packed, feats, events=None):
         if k != "aff" and v.dtype != _BF16:
             raise ValueError(f"the FCM kernel takes bf16 weights, packed[{k!r}] "
                              f"is {v.dtype}")
-    fn, ws_elems, _ = _entries()
+    fn, ws_elems, *_ = _entries()
     x = feats.float().contiguous()
-    t_pad = -(-t // _TIME_TILE) * _TIME_TILE
     out = torch.empty((b, t, FCM_DIM), dtype=_BF16, device=dev)
-    ws = torch.empty((ws_elems(b, t_pad),), dtype=_BF16, device=dev)
+    ws = torch.empty((ws_elems(b, t),), dtype=_BF16, device=dev)
     grids = fcm_grids(b, t, fcm_occupancy(dev))
     p = _FcmParams(x.data_ptr(), out.data_ptr(), ws.data_ptr(),
                    *(packed[f"w{i}"].data_ptr() for i in range(12)),
                    packed["aff"].data_ptr(), ctypes.cast(events, ctypes.c_void_p),
-                   b, t, t_pad, (ctypes.c_int * len(grids))(*grids))
+                   b, t, (ctypes.c_int * len(grids))(*grids))
     from .._build import check
     # the kernel launches on the current device: make it the tensor's
     with torch.cuda.device(dev):
