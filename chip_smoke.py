@@ -16,8 +16,10 @@ Phases (any failure raises and the script exits non-zero):
             CAM++ width: b8 x 298 and b8 x 297 frames (where the JAX
             package's single-pass kernel runs), b4 x 1598 (the 16 s
             bucket), b2 x 3198 (the 32 s bucket, where it runs the
-            chunked kernel), and the edges of the kernel's items: b1 x 5
-            (shorter than every halo), b3 x 33 (one frame past a time
+            chunked kernel), the bucket shapes the main path gives it: b64
+            x 98 (1 s), b256 x 198 (2 s), b1 x 398 (one /embedding, 4 s)
+            and b16 x 798 (8 s), and the edges of the kernel's items: b1 x
+            5 (shorter than every halo), b3 x 33 (one frame past a time
             tile) and b1 x 1598 (one long clip)
 5. trunk    the trunk kernel against its plain version (both bf16), full
             CAM++ width with random weights and BN statistics from a seed,
@@ -33,19 +35,26 @@ Phases (any failure raises and the script exits non-zero):
             and 8 seeded 9-30 s clips (the 32 s bucket), a 15 s clip (the
             16 s bucket), and a 33 s clip that runs the plain
             model; every kernel's launch counter must rise, and 1-8 s,
-            16 s and 32 s embeddings are held against the eager fp32 model
+            16 s and 32 s embeddings are held against the eager fp32 model;
+            the FCM and trunk kernels launch at every stage (the demo wavs,
+            the 1-8 s clips, the 32 s and 16 s buckets) and not for the
+            33 s clip
 7. times    CUDA-event times of each kernel against its plain version and
             whole-embed utt/s at b256 x 3 s (bench.py's embed workload)
             and b32 x 16 s; the fbank kernel also at b32 x 16 s and b1 x
             64000 (one /embedding), each beside ``cufft_ms`` (kaldi's steps
             as library calls with cuFFT, fp32) and its device time from a
             CUDA-graph replay (at b1 the events time the host's launches);
-            the FCM kernel also against the model's plain
-            FCM (cuDNN), there and at b1 x 398 and b64 x 398 (below
-            FCM_MIN_T), with the ms of each of its four launches beside
-            the bytes the design moves and the operations it issues (GB/s,
-            TFLOP/s of the function's and of the design's work, the byte
-            floor); the stages of the b32 x 16 s embed; the trunk
+            the FCM kernel's crossover against the model's plain FCM
+            (cuDNN convs, the input in the model's dtype, on a thread
+            that has its cuDNN handle), in turns, at b1, b64 and b256 of each bucket from 1 s
+            to 8 s (98, 198, 398 and 798 frames), b256 x 298 and b32 x
+            1598, one line a shape, failing if cuDNN wins at any (the embed
+            path takes the kernel at every bucket); the ms of each of its
+            four launches beside the bytes the design moves and the
+            operations it issues (GB/s, TFLOP/s of the function's and of
+            the design's work, the byte floor); the stages of the b256 x 3
+            s and b32 x 16 s embeds; the trunk
             at b256 x 298, b64 x 398, b1 x 398 and b32 x 1598 frames with
             its default cluster split against the smallest cluster that
             shape allows, in turns, with each split's block threads and
@@ -68,7 +77,10 @@ Phases (any failure raises and the script exits non-zero):
             main-thread embed; then /embedding P50/P99 latency over 100
             serial requests, micro-batched requests/s with 64 clients
             over 512 requests, the diarization wall time, and where one
-            request's time goes (HTTP, decode, the b1 and b64 embed stages)
+            request's time goes (HTTP, decode, the b1 and b64 embed stages;
+            predict_batch and cuDNN's FCM in a new thread against the
+            same thread); the FCM kernel's launches on one /embedding and
+            on predict_batch of 3 s clips (one each)
 9. backbones the six other configs (tdnn, ecapa_tdnn, res2net, resnet_se,
             eres2net, eres2netv2) at full width with random weights from a
             seed: Predictor(device="cuda") over 32 seeded 1-8 s clips in
@@ -423,8 +435,8 @@ def check_fcm(fkm, packed_fcm, rng, dev):
     """Phase 4: the FCM kernel against its plain version (both bf16);
     returns the largest max |d|."""
     fcm_max = 0.0
-    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198), (1, 5), (3, 33),
-                 (1, 1598)):
+    for b, t in ((8, 298), (8, 297), (4, 1598), (2, 3198), (64, 98),
+                 (256, 198), (1, 398), (16, 798), (1, 5), (3, 33), (1, 1598)):
         x = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
         got = fkm.fcm_fused(packed_fcm, x)
         ref = fkm.fcm_reference(packed_fcm, x)
@@ -556,12 +568,20 @@ def fcm_split(fkm, packed_fcm, fx, occ):
     return rows
 
 
+# the buckets' frames from 1 s to 8 s (data_utils/collate.py) and the
+# batches of the FCM crossover: one /embedding, a micro-batch, bench.py's
+FCM_BUCKET_FRAMES = (98, 198, 398, 798)
+FCM_CROSSOVER_BATCHES = (1, 64, 256)
+
+
 def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
     """Phase 7, the FCM. For each of ``feats`` ({name: (B, T, 80)}): the
-    kernel against its plain version (fcm_reference) in turns, the model's
-    plain FCM (cuDNN), and the split by launch. At b1 x 398 and b64 x 398
-    (one /embedding and a micro-batch, below FCM_MIN_T): the kernel
-    against model.FCM_0 in turns."""
+    kernel against its plain version (fcm_reference) in turns and the
+    split by launch. Then the crossover: the kernel against the model's
+    plain FCM (cuDNN, called as the embed path called it: the input in
+    the model's dtype, on this thread, which has its cuDNN handle) in
+    turns at each of FCM_CROSSOVER_BATCHES x FCM_BUCKET_FRAMES and at
+    ``feats``' shapes; raises if cuDNN wins at any."""
     occ = fkm.fcm_occupancy(dev)
     log(f"[fcm] {card}: each launch's resident blocks per SM and SM count "
         f"{occ}")
@@ -569,15 +589,13 @@ def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
     for name, fx in feats.items():
         k, p = turns(lambda: fkm.fcm_reference(packed_fcm, fx),
                      lambda: fkm.fcm_fused(packed_fcm, fx), 10, 3)
-        cud = [cuda_ms(lambda: model.FCM_0(fx), 3, 1) for _ in range(2)]
         split = fcm_split(fkm, packed_fcm, fx, occ)
         floor = sum(r["floor_ms"] for r in split)
-        out[name] = {"ms": k, "plain_ms": p, "cudnn_ms": cud,
-                     "design_floor_ms": floor, "split": split}
+        out[name] = {"ms": k, "plain_ms": p, "design_floor_ms": floor,
+                     "split": split}
         log(f"[times] {card}: FCM {name} kernel {k} ms, plain version "
-            f"(fcm_reference) {p} ms, model.FCM_0 (cuDNN, fp32) {cud} ms; "
-            f"design byte floor {floor:.4f} ms (the kernel at "
-            f"{floor / ms(k):.1%} of it)")
+            f"(fcm_reference) {p} ms; design byte floor {floor:.4f} ms (the "
+            f"kernel at {floor / ms(k):.1%} of it)")
         for r in split:
             log(f"[fcm split] {card}: {name} {r['name']} ({r['convs']}) "
                 f"{r['ms']:.4f} ms, {r['bytes'] / 1e6:.1f} MB, "
@@ -587,13 +605,32 @@ def fcm_times(fkm, packed_fcm, model, feats, rng, dev, card):
                 f"items {r['items']}, grid {r['grid']}")
         log(f"[fcm split] {card}: {name} sum of launches "
             f"{sum(r['ms'] for r in split):.4f} ms")
-    for name, b, t in (("b1 x 398", 1, 398), ("b64 x 398", 64, 398)):
-        fx = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
-        k, c = turns(lambda: model.FCM_0(fx),
-                     lambda: fkm.fcm_fused(packed_fcm, fx), 20)
-        out[name] = {"ms": k, "cudnn_ms": c}
-        log(f"[times] {card}: FCM {name} frames kernel {k} ms, model.FCM_0 "
-            f"(cuDNN, fp32) {c} ms")
+    dtype = model.DenseBN_0.Dense_0.weight.dtype
+    shapes = [(b, t, None) for t in FCM_BUCKET_FRAMES
+              for b in FCM_CROSSOVER_BATCHES]
+    shapes += [(*fx.shape[:2], fx) for fx in feats.values()]
+    crossover, cudnn_wins = {}, []
+    for b, t, fx in shapes:
+        if fx is None:
+            fx = torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).to(dev)
+        # cuDNN's FCM takes about 0.0002-0.0003 ms a frame at a batch:
+        # about 30 ms of it a timed run
+        iters = max(3, min(20, int(30 / (0.0002 * b * t) + 1)))
+        k, c = turns(lambda: model.FCM_0(fx.to(dtype)),
+                     lambda: fkm.fcm_fused(packed_fcm, fx), 20,
+                     plain_iters=iters)
+        name = f"b{b} x {t}"
+        crossover[name] = {"batch": b, "frames": t, "ms": k, "cudnn_ms": c}
+        if max(k) >= min(c):
+            cudnn_wins.append(name)
+        log(f"[crossover] {card}: FCM {name} frames: kernel {k} ms, "
+            f"model.FCM_0 (cuDNN, {dtype}) {c} ms; cuDNN / kernel "
+            f"{ms(c) / ms(k):.2f}")
+    out["crossover"] = crossover
+    if cudnn_wins:
+        raise AssertionError(f"cuDNN's FCM beats the FCM kernel at "
+                             f"{cudnn_wins}: the embed path must not take "
+                             f"the kernel there")
     return out
 
 
@@ -697,9 +734,13 @@ def serving_breakdown(pred, model, url, bodies, card, dev):
     of an HTTP round trip without and with the 3 s body (GET /users, a
     POST that answers 404), WAV decode + dB normalisation, and
     predict_batch at b1 (also from a new thread each time, as a server
-    that starts a thread per request would call it) and b64; CUDA-event
-    device times of the b1 and b64 embed stages (fbank + CMN, plain FCM,
-    trunk kernel, head)."""
+    that starts a thread per request would call it) and b64; the model's
+    cuDNN FCM at b1, from a new thread each time and from this thread (a
+    stand-in for the other backbones' cuDNN convs); CUDA-event device
+    times of the b1 and b64 embed stages as served (fbank + CMN, FCM
+    kernel, trunk kernel, head)."""
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
     from voiceprintrecognition_paddlepaddle_torch.models import \
         trunk_kernel as tk
 
@@ -737,6 +778,7 @@ def serving_breakdown(pred, model, url, bodies, card, dev):
             lambda: pred.predict_batch(samples, batch_size=64), 10),
     }
     feat, packed = pred._audio_featurizer, tk.pack_trunk(model)
+    packed_fcm = fkm.pack_fcm(model)
     for b in (1, 64):
         n = len(samples[0])
         bucket = 64000
@@ -748,11 +790,16 @@ def serving_breakdown(pred, model, url, bodies, card, dev):
             feats = feat(waves, input_lens_ratio=ratios)
             t_valid, _ = tk.trunk_geometry(feats.shape[1])
             tv = tk.tvalids_from_ratios(ratios, t_valid)
-            fcm = model.FCM_0(feats)
+            fcm = fkm.fcm_fused(packed_fcm, feats)
             stats = tk.trunk_stats(packed, fcm, tv)
+            if b == 1:
+                res["cudnn_fcm_b1_new_thread"] = wall_ms(
+                    lambda: in_new_thread(lambda: model.FCM_0(feats)), 20)
+                res["cudnn_fcm_b1"] = wall_ms(lambda: model.FCM_0(feats), 20)
             res[f"b{b}_featurize"] = cuda_ms(
                 lambda: feat(waves, input_lens_ratio=ratios), 20)
-            res[f"b{b}_fcm_plain"] = cuda_ms(lambda: model.FCM_0(feats), 20)
+            res[f"b{b}_fcm_kernel"] = cuda_ms(
+                lambda: fkm.fcm_fused(packed_fcm, feats), 20)
             res[f"b{b}_trunk_kernel"] = cuda_ms(
                 lambda: tk.trunk_stats(packed, fcm, tv), 20)
             res[f"b{b}_head"] = cuda_ms(lambda: model.DenseBN_0(stats), 20)
@@ -806,7 +853,7 @@ def serve_phase(model, dev, card, rng):
         named = pred.speaker_diarization(long_wav, search_audio_db=True)
         launches = read_launches(fk, fkm, tk)
         log(f"[serve] diarization of test_long.wav x3: launches {launches}")
-        if launches["fbank"] < 3 or launches["campplus_trunk"] < 3:
+        if min(launches.values()) < 3:
             raise AssertionError(f"diarization missed a kernel: {launches}")
         out["launches_diarization"] = launches
         check_segments("without an oracle count", auto)
@@ -918,9 +965,26 @@ def serve_phase(model, dev, card, rng):
             f"HTTP run {launches}")
         if not (c > 0.9999 and batches < items == 64):
             raise AssertionError("micro-batched embeddings disagree")
-        if launches["fbank"] < 1 or launches["campplus_trunk"] < 1:
+        if min(launches.values()) < 1:
             raise AssertionError(f"HTTP serving missed a kernel: {launches}")
         out["launches_http"] = launches
+        # one /embedding of a 3 s clip, and predict_batch of one and of 64
+        # 3 s clips (the 4 s bucket): one launch of each kernel a batch
+        reset_launches(fk, fkm, tk)
+        http_post(f"{plain_url}/embedding", bodies[0])
+        one = read_launches(fk, fkm, tk)
+        reset_launches(fk, fkm, tk)
+        samples = [pred._load_audio(b).samples for b in bodies]
+        pred.predict_batch(samples[:1])
+        pred.predict_batch(samples, batch_size=64)
+        two = read_launches(fk, fkm, tk)
+        log(f"[serve] launches of one /embedding (3 s) {one}; of predict_batch "
+            f"at b1 and b64 (3 s clips) {two}")
+        if not (set(one.values()) == {1} and set(two.values()) == {2}):
+            raise AssertionError("a 3 s /embedding or predict_batch did not "
+                                 "launch each kernel once a batch")
+        out["launches_embedding_request"] = one
+        out["launches_predict_batch_3s_b1_b64"] = two
 
         # ---- serving numbers -------------------------------------------
         for _ in range(5):
@@ -2561,8 +2625,8 @@ def parallel_phase(dev, card, nproc=2):
         ev1.model.load_state_dict(torch.load(
             os.path.join(work, "eval_model.pt")))
         # in fp32 convs, as the ranks; then once in TF32 (PyTorch's
-        # default): how far the precision of the plain FCM's convs moves
-        # these embeddings
+        # default): how far the precision of cuDNN's convs moves these
+        # embeddings (none since the FCM kernel serves every bucket)
         torch.backends.cudnn.allow_tf32 = False
         try:
             world1 = p12_evaluate(ev1)
@@ -2702,7 +2766,9 @@ def p13_config(train_list):
                         "sample_rate": 16000, "use_dB_normalization": True,
                         "target_dB": -20, "seed": 7},
             "sampler": {"batch_size": 8, "shuffle": True, "drop_last": True},
-            "dataLoader": {"num_workers": 2},
+            # one loader thread: two draw the clips' crops from one
+            # generator in whichever order the host schedules them
+            "dataLoader": {"num_workers": 1},
             "eval_conf": {"batch_size": 4, "max_duration": 2},
             "train_list": train_list, "enroll_list": None,
             "trials_list": None},
@@ -2825,6 +2891,58 @@ class fp32_convs:
         return False
 
 
+class p13_deterministic:
+    """cuDNN's deterministic algorithms without autotuning and PyTorch's
+    deterministic kernels inside the block, so that phase 13's training
+    gives the same weights, and so the same diarization, on every run.
+    An op with no deterministic version warns; the set of such warnings
+    is ``self.ops``."""
+
+    def __enter__(self):
+        import warnings
+
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled(),
+                      torch.backends.cudnn.deterministic,
+                      torch.backends.cudnn.benchmark,
+                      os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        self._catch.__exit__(*exc)
+        self.ops = sorted({str(w.message).splitlines()[0] for w in self._seen
+                           if "determinis" in str(w.message)})
+        on, warn_only, det, bench, cublas = self.saved
+        torch.use_deterministic_algorithms(on, warn_only=warn_only)
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        return False
+
+
+def state_digest(model):
+    """SHA-256 of a module's state (names and bytes), its first 16 hex
+    digits: equal digests, equal weights."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 class kaldi_featurizer:
     """The Predictor's Fbank and masked CMN through ``kaldi.fbank`` (plain
     PyTorch in fp32): a featurizer that launches no kernel."""
@@ -2844,15 +2962,17 @@ class kaldi_featurizer:
 def p13_chunk_cos(pred, plain, chunks):
     """Cosines (min, mean) of the diarization chunk embeddings: as served
     (``predict_batch``: the kernel path, each chunk padded to its bucket)
-    against the plain version of the same path (``fbank_fused_reference``
-    and ``trunk_stats_reference`` on the same padded batch); the kernel
-    path at exact length against the fp32 model at exact length
-    (``kaldi.fbank``, CMN, the eager CAM++: the kernels' bf16 design
-    alone); as served against the fp32 model at exact length (that and
-    the bucket padding); as served against the fp32 plain Predictor
+    against the plain version of the same path (``fbank_fused_reference``,
+    ``fcm_reference`` and ``trunk_stats_reference`` on the same padded
+    batch); the kernel path at exact length against the fp32 model at
+    exact length (``kaldi.fbank``, CMN, the eager CAM++: the kernels' bf16
+    design alone); as served against the fp32 model at exact length (that
+    and the bucket padding); as served against the fp32 plain Predictor
     (``plain``: its eager model at the same padding)."""
     from voiceprintrecognition_paddlepaddle_torch.data_utils.collate import \
         bucket_length
+    from voiceprintrecognition_paddlepaddle_torch.models import \
+        fcm_kernel as fkm
     from voiceprintrecognition_paddlepaddle_torch.models import \
         trunk_kernel as tk
     from voiceprintrecognition_paddlepaddle_torch.ops import features
@@ -2873,7 +2993,8 @@ def p13_chunk_cos(pred, plain, chunks):
             fbank_fused_reference(padded, sr=16000, n_mels=80), ratios)
         t_valid, _ = tk.trunk_geometry(feats.shape[1])
         stats = tk.trunk_stats_reference(
-            tk.pack_trunk(model), model.FCM_0(feats),
+            tk.pack_trunk(model),
+            fkm.fcm_reference(fkm.pack_fcm(model), feats),
             tk.tvalids_from_ratios(ratios, t_valid))
         plain_version = model.DenseBN_0(stats).float()
         kernel_exact = pred._embed(exact, None)
@@ -2935,8 +3056,9 @@ def last_modules_phase(dev, card):
         with open(train_list, "w", encoding="utf-8") as f:
             f.write("\n".join(lines) + "\n")
         cfg = p13_config(train_list)
-        tr = Trainer(cfg, device=dev)
-        tr.train(save_model_path="", log_dir="", do_eval=False)
+        with p13_deterministic() as det:
+            tr = Trainer(cfg, device=dev)
+            tr.train(save_model_path="", log_dir="", do_eval=False)
         model_pt = os.path.join(work, "model", "model.pt")
         os.makedirs(os.path.dirname(model_pt))
         torch.save({k: v.detach().cpu() for k, v in
@@ -2946,11 +3068,14 @@ def last_modules_phase(dev, card):
                                     torch.nn.BatchNorm2d))]
         out["train"] = {"steps": tr.step, "loss": float(tr.train_loss),
                         "acc": float(tr.train_acc),
-                        "bn_running_var_min": min(bn_var)}
+                        "bn_running_var_min": min(bn_var),
+                        "digest": state_digest(tr.model),
+                        "nondeterministic_ops": det.ops}
         lap("train", t)
         log(f"[phase13] {card}: Trainer.train() of the stock CAM++ (192-d) "
             f"on 4 tone speakers x 4 clips of 1.2 s, 40 epochs at lr 0.05, "
-            f"seed 7: {out['train']}")
+            f"seed 7, deterministic algorithms, one loader thread: "
+            f"{out['train']}")
         trained = tr.model
         del tr
 
@@ -3338,15 +3463,30 @@ def main():
         t0 = time.perf_counter()
         pred = Predictor(CONFIG, threshold=-1.0, audio_db_path=db,
                          model_path=model_path, device="cuda")
+        # the launches each stage adds: the FCM and trunk kernels serve
+        # every bucket up to 32 s, so every stage but the 33 s clip
+        # launches both
+        stage_launches, last = {}, read_launches(fk, fkm, tk)
+
+        def stage(name):
+            nonlocal last
+            now = read_launches(fk, fkm, tk)
+            stage_launches[name] = {k: now[k] - last[k] for k in now}
+            last = now
+
         ok_a, _ = pred.register(wav("a_1"), "speaker_a")
         ok_b, _ = pred.register(wav("b_1"), "speaker_b")
         rec = [pred.recognition(wav(n)) for n in ("a_2", "b_2")]
         score = pred.contrast(wav("a_1"), wav("a_2"))
+        stage("register, recognition, contrast (demo wavs)")
         embs = pred.predict_batch(clips)
+        stage("predict_batch, 64 clips of 1-8 s")
         long_embs = pred.predict_batch(long_clips)
+        stage("predict_batch, 8 clips of 9-30 s")
         emb_16 = pred.predict_batch([clip_16])[0]
-        kernel_counts = (fkm.fcm_fused.launches, tk.trunk_stats.launches)
+        stage("predict_batch, a 15 s clip")
         emb_33 = pred.predict_batch([clip_33])
+        stage("predict_batch, a 33 s clip")
         launches = read_launches(fk, fkm, tk)
         main_clusters = dict(sorted(tk.trunk_stats.cluster_launches.items()))
         main_s = time.perf_counter() - t0
@@ -3355,7 +3495,8 @@ def main():
             f"recognition {rec}; contrast(a_1, a_2) = {score:.4f}; "
             f"predict_batch {embs.shape} + {long_embs.shape}; predict 15 s "
             f"{emb_16.shape}; 33 s {emb_33.shape}; launches {launches}; "
-            f"trunk launches by cluster size {main_clusters}")
+            f"trunk launches by cluster size {main_clusters}; by stage "
+            f"{json.dumps(stage_launches)}")
         if not (ok_a and ok_b and embs.shape == (64, 192)
                 and long_embs.shape == (8, 192) and emb_16.shape == (192,)
                 and emb_33.shape == (1, 192)
@@ -3364,9 +3505,11 @@ def main():
                 and np.isfinite(score)
                 and all(r[0] is not None for r in rec)):
             raise AssertionError("Predictor outputs are wrong")
-        if min(launches.values()) < 1:
-            raise AssertionError(f"a kernel of the path never ran: {launches}")
-        if kernel_counts != (launches["fcm"], launches["campplus_trunk"]):
+        *kernel_stages, plain_stage = stage_launches.values()
+        if any(min(n.values()) < 1 for n in kernel_stages):
+            raise AssertionError(f"a kernel of the path did not run at every "
+                                 f"stage: {stage_launches}")
+        if plain_stage["fcm"] or plain_stage["campplus_trunk"]:
             raise AssertionError("the 33 s clip did not take the plain branch")
         # outputs against the eager fp32 model on exact-length features
         # from the plain fbank
@@ -3406,6 +3549,15 @@ def main():
         embed_ms = cuda_ms(lambda: embed(waves), 10)
         feats_3 = feat(waves)
         feats_16 = feat(w16)
+        fcm3 = fkm.fcm_fused(packed_fcm, feats_3)
+        stats3 = tk.trunk_stats(packed, fcm3)
+        stages3 = {
+            "featurize": cuda_ms(lambda: feat(waves), 10),
+            "fcm kernel": cuda_ms(
+                lambda: fkm.fcm_fused(packed_fcm, feats_3), 10),
+            "trunk kernel": cuda_ms(lambda: tk.trunk_stats(packed, fcm3), 10),
+            "head": cuda_ms(lambda: model.DenseBN_0(stats3), 10),
+        }
         fcm_t = fcm_times(fkm, packed_fcm, model, {"b256 x 3 s": feats_3,
                                                    "b32 x 16 s": feats_16},
                           rng, dev, card)
@@ -3453,7 +3605,7 @@ def main():
     log(f"[times] {card}: trunk b256 x 298 frames kernel {tr_kern} ms, plain "
         f"{tr_plain} ms")
     log(f"[times] {card}: whole embed b256 x 3 s {embed_ms:.3f} ms/batch = "
-        f"{256e3 / embed_ms:.1f} utt/s")
+        f"{256e3 / embed_ms:.1f} utt/s; stages {stages3} ms")
     log(f"[times] {card}: trunk b32 x 1598 frames kernel {tr16_kern} ms, "
         f"plain {tr16_plain} ms")
     log(f"[times] {card}: whole embed b32 x 16 s {embed16_ms:.3f} ms/batch = "
@@ -3509,6 +3661,7 @@ def main():
                       "train_path": training["fp32"]["launches_train_path"]}
 
     f16, f3 = fcm_t["b32 x 16 s"], fcm_t["b256 x 3 s"]
+    cross = fcm_t["crossover"]
     # bounds at the shapes of "ms": fbank b256 x 3 s (fp32: a 512-point
     # FFT per frame), FCM b32 x 16 s (bf16 convs), trunk b256 x 3 s (bf16
     # products over the valid rows)
@@ -3552,25 +3705,30 @@ def main():
         {"name": "fcm", "route": "cuda", "source": FCM_SRC,
          "replaces": FCM_TPU, "also_replaces": FCM_TPU_CHUNKED,
          "launches": launches["fcm"], "max_abs_err": fcm_max,
+         "launches_main_by_stage": {k: n["fcm"]
+                                    for k, n in stage_launches.items()},
+         "launches_embedding_request":
+             served["launches_embedding_request"]["fcm"],
+         "launches_predict_batch_3s_b1_b64":
+             served["launches_predict_batch_3s_b1_b64"]["fcm"],
          "launches_eval": train_launches["eval"]["fcm"],
          "launches_phase11": phase11_launches("fcm"),
          "launches_phase12": phase12_launches("fcm"),
          "launches_phase13": phase13_launches("fcm"),
          "ms": ms(f16["ms"]), "plain_ms": ms(f16["plain_ms"]),
          **fcm_bounds["b32 x 16 s"], "library_ms": None,
-         "cudnn_ms": ms(f16["cudnn_ms"]),
+         "cudnn_ms": ms(cross["b32 x 1598"]["cudnn_ms"]),
          "design_floor_ms": f16["design_floor_ms"], "shape": "b32 x 16 s",
          "ms_b256x3s": ms(f3["ms"]), "plain_ms_b256x3s": ms(f3["plain_ms"]),
-         "cudnn_ms_b256x3s": ms(f3["cudnn_ms"]),
+         "cudnn_ms_b256x3s": ms(cross["b256 x 298"]["cudnn_ms"]),
          "bound_ms_b256x3s": fcm_bounds["b256 x 3 s"]["bound_ms"],
          "work_gflop_b256x3s": fcm_bounds["b256 x 3 s"]["work_gflop"],
          "design_floor_ms_b256x3s": f3["design_floor_ms"],
          "occupancy": fcm_t["occupancy"],
          "split_ms": {n: {r["name"]: r["ms"] for r in f["split"]}
                       for n, f in (("b32 x 16 s", f16), ("b256 x 3 s", f3))},
-         "vs_cudnn_398": {n: {"ms": ms(fcm_t[n]["ms"]),
-                              "cudnn_ms": ms(fcm_t[n]["cudnn_ms"])}
-                          for n in ("b1 x 398", "b64 x 398")}},
+         "crossover": {n: {"ms": ms(c["ms"]), "cudnn_ms": ms(c["cudnn_ms"])}
+                       for n, c in cross.items()}},
         {"name": "campplus_trunk", "route": "cuda", "source": TRUNK_SRC,
          "replaces": TRUNK_TPU, "also_replaces": TRUNK_TPU_LOOPED,
          "launches": launches["campplus_trunk"], "max_abs_err": trunk_max,
@@ -3585,7 +3743,7 @@ def main():
          "clusters_checked": sorted(checked), "split_times": split_times,
          "cluster_sweep": sweep, "resident_clusters": resident,
          "phase_split": trunk_split_ms},
-    ], "embed_utt_per_s": 256e3 / embed_ms,
+    ], "embed_utt_per_s": 256e3 / embed_ms, "embed_stages_ms": stages3,
         "embed_16s_utt_per_s": 32e3 / embed16_ms, "serve": served,
         "train_utt_per_s": training["fp32"]["train_utt_per_s"],
         "train_utt_per_s_amp": training["amp"]["train_utt_per_s"],

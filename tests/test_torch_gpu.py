@@ -325,6 +325,26 @@ def predictor(cuda, model, tmp_path_factory):
                      audio_db_path=db, device="cuda")
 
 
+def test_3s_predict_batch_launches_the_fcm_kernel_once(predictor):
+    """A batch of 3 s clips (the 4 s bucket, 398 frames) takes the FCM
+    kernel, one launch for the batch, and its rows hold against the same
+    clips embedded one at a time."""
+    from chip_smoke import row_cos
+
+    rng = np.random.RandomState(16)
+    clips = [(rng.randn(48000) * 0.1).astype(np.float32) for _ in range(4)]
+    before = (fk.fbank_fused.launches, fkm.fcm_fused.launches,
+              tk.trunk_stats.launches)
+    got = predictor.predict_batch(clips)
+    torch.cuda.synchronize()
+    assert (fk.fbank_fused.launches, fkm.fcm_fused.launches,
+            tk.trunk_stats.launches) == tuple(n + 1 for n in before)
+    one = np.stack([predictor.predict_batch([c])[0] for c in clips])
+    assert got.shape == (4, 192) and np.isfinite(got).all()
+    assert float(row_cos(torch.from_numpy(got),
+                         torch.from_numpy(one)).min()) > 0.9999
+
+
 def test_diarization_on_cuda(predictor):
     wav = os.path.join(ROOT, "dataset", "test_long.wav")
     before = (fk.fbank_fused.launches, tk.trunk_stats.launches)

@@ -2,9 +2,10 @@
 demo wavs against the JAX exact-length embedding (JAX features and
 ``CAMPPlus.apply`` on the unpadded clip), plus the Predictor's database
 surface (register / recognition / contrast / remove_user / retrieve, the
-pickle index, the path-traversal guard), the 16 s bucket through the FCM
-kernel's module, the plain branch past the 32 s bucket, and the choice of
-path by configuration: a CAM++ off the stock widths, a dithered Fbank
+pickle index, the path-traversal guard), the 1, 2, 4, 8 and 16 s
+buckets through the FCM kernel's module, the plain branch past the 32 s
+bucket, and the choice of path by configuration: a CAM++ off the stock
+widths, a dithered Fbank
 and each of the six other backbones serve through the plain model, and
 match the JAX ``Predictor`` there (cos > 0.9999); an ECAPA-TDNN config
 serves over HTTP and through the command-line modules.
@@ -52,6 +53,18 @@ def _configs():
         cfg = yaml.safe_load(f)
     return {k: cfg[k] for k in ("dataset_conf", "preprocess_conf",
                                 "model_conf")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two torch threads for this file, as ``tests/test_torch_trainer.py``
+    has: the suite runs six workers on the host's cores, and torch's
+    default pool of one thread per core in each worker oversubscribes
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -162,10 +175,9 @@ def test_register_rejects_path_traversal(world, name):
 
 
 def test_16s_bucket_takes_the_fcm_kernel_and_matches_jax(world, monkeypatch):
-    """A 12 s clip pads to the 16 s bucket (1598 frames >= FCM_MIN_T), so
-    the embed goes through ``fcm_fused`` (its plain version on the CPU)
-    and the trunk at 799 rows; it holds against JAX's exact-length
-    embedding."""
+    """A 12 s clip pads to the 16 s bucket (1598 frames), so the embed
+    goes through ``fcm_fused`` (its plain version on the CPU) and the
+    trunk at 799 rows; it holds against JAX's exact-length embedding."""
     _, jax_exact, _ = world
     calls = []
     real = tk.fcm_fused
@@ -177,6 +189,32 @@ def test_16s_bucket_takes_the_fcm_kernel_and_matches_jax(world, monkeypatch):
     assert calls == [(1, 1598, 80)]
     assert got.shape == (1, 192) and np.isfinite(got).all()
     assert cos_min(jax_exact(clip)[None], got) > 0.999
+
+
+@pytest.mark.parametrize("seconds,frames", [(1, 98), (2, 198), (4, 398),
+                                            (8, 798)])
+def test_each_short_bucket_takes_the_fcm_kernel_and_matches_jax(
+        world, monkeypatch, seconds, frames):
+    """The embed path takes the FCM kernel at every bucket, as on the
+    card: a batch of a clip that fills the ``seconds`` bucket and a
+    shorter one (the masked path) goes through ``fcm_fused`` (its plain
+    version on the CPU) once, at the bucket's frames, and each clip holds
+    against JAX's exact-length embedding."""
+    _, jax_exact, _ = world
+    calls = []
+    real = tk.fcm_fused
+    monkeypatch.setattr(tk, "fcm_fused",
+                        lambda p, f: calls.append(f.shape) or real(p, f))
+    pred = _predictor(world)
+    rng = np.random.RandomState(seconds)
+    n = seconds * 16000
+    clips = [(rng.randn(m) * 0.05).astype(np.float32)
+             for m in (n, n * 3 // 4)]
+    got = pred.predict_batch(clips)
+    assert calls == [(2, frames, 80)]
+    assert got.shape == (2, 192) and np.isfinite(got).all()
+    for i, clip in enumerate(clips):
+        assert cos_min(jax_exact(clip)[None], got[i:i + 1]) > 0.999, i
 
 
 def test_bucket_past_32s_runs_the_plain_model(world, jax_padded, monkeypatch):

@@ -234,6 +234,138 @@ def test_requests_run_on_long_lived_threads():
     assert len(seen) == 12 and len(set(seen)) <= 3
 
 
+def test_a_serial_client_keeps_its_thread_while_the_answer_winds_up():
+    """The thread that answered takes the client's next request even when
+    it is still winding up after the answer, for longer than
+    ``spawn_after_s`` (here 50 ms after each handler returns): a thread
+    counts as free for the next request once its handler starts the final
+    response, however late the host schedules it afterwards."""
+    import time
+    from http.server import BaseHTTPRequestHandler
+
+    class Ident(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps(threading.get_ident()).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):
+            pass
+
+    def finish_request(self, request, client_address):
+        serve.ServingHTTPServer.finish_request(self, request, client_address)
+        time.sleep(0.05)
+
+    lingering = type("Lingering", (serve.ServingHTTPServer,), {
+        "workers": 3, "finish_request": finish_request})
+    assert lingering.spawn_after_s < 0.05
+    httpd = lingering(("127.0.0.1", 0), Ident)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/"
+    try:
+        serial = [_get(url) for _ in range(10)]
+    finally:
+        _stop(httpd)
+    assert len(set(serial)) == 1
+
+
+def test_hand_overs_lose_no_request_under_contention():
+    """Sixteen clients (more than the host's cores) each send six serial
+    requests to a four-worker server whose threads wind up 5 ms after
+    each answer, with a short switch interval: every request is answered
+    (a request left to an answering thread and then dropped would time
+    out) and at most four threads serve them."""
+    import sys
+    import time
+    from http.server import BaseHTTPRequestHandler
+
+    class Ident(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps(threading.get_ident()).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):
+            pass
+
+    def finish_request(self, request, client_address):
+        serve.ServingHTTPServer.finish_request(self, request, client_address)
+        time.sleep(0.005)
+
+    lingering = type("Lingering", (serve.ServingHTTPServer,), {
+        "workers": 4, "finish_request": finish_request})
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    httpd = lingering(("127.0.0.1", 0), Ident)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/"
+    seen = []
+    try:
+        clients = [threading.Thread(
+            target=lambda: seen.extend(_get(url) for _ in range(6)))
+            for _ in range(16)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=60)
+        assert not any(c.is_alive() for c in clients)
+    finally:
+        sys.setswitchinterval(interval)
+        _stop(httpd)
+    assert len(seen) == 96 and len(set(seen)) <= 4
+
+
+def test_an_answer_that_stalls_holds_up_the_next_client_briefly():
+    """A handler that stalls after ``end_headers`` (as a write to a client
+    that stops reading does) keeps its thread, and the next client's
+    request gets a new thread within ``handover_s`` instead of waiting
+    for the stalled answer."""
+    import time
+    from http.server import BaseHTTPRequestHandler
+
+    stalling, release = threading.Event(), threading.Event()
+
+    class Stall(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = json.dumps(threading.get_ident()).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if self.path == "/stall":
+                stalling.set()
+                release.wait(timeout=10)
+            self.wfile.write(body)
+
+        def log_message(self, fmt, *args):
+            pass
+
+    two = type("TwoWorkers", (serve.ServingHTTPServer,), {"workers": 2})
+    httpd = two(("127.0.0.1", 0), Stall)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/"
+    stalled = []
+    try:
+        first = threading.Thread(
+            target=lambda: stalled.append(_get(url + "stall")))
+        first.start()
+        assert stalling.wait(timeout=10)
+        t0 = time.monotonic()
+        other = _get(url)
+        waited = time.monotonic() - t0
+        release.set()
+        first.join(timeout=30)
+        assert not first.is_alive()
+    finally:
+        release.set()
+        _stop(httpd)
+    assert waited < 2.0  # handover_s (0.25 s), well short of the stall
+    assert other != stalled[0]
+
+
 def test_requests_that_wait_on_each_other_each_get_a_thread():
     """Concurrent requests that wait on one another (as micro-batched ones
     wait for their batch) grow the pool: eight handlers meet at a barrier

@@ -3,8 +3,7 @@
 
 This is the plain model: the test oracle for the whole network, in fp32
 or bf16. The serving path (``trunk_kernel.campplus_embed_fast``) reuses
-its head, and its FCM below 1000 frames, and replaces the trunk (and the
-FCM from 1000 frames) with CUDA kernels.
+its head and replaces the FCM and the trunk with CUDA kernels.
 
 Layouts at the public functions follow the JAX package:
 

@@ -30,9 +30,14 @@ shortcuts) and a final stride-2 3x3 conv.
   resident blocks (``fcm_occupancy``), and the wrapper passes those grids
   to the kernel.
 
-The embed path uses the kernel for buckets of ``FCM_MIN_T`` frames and
-more, as the JAX package does (``pallas_campplus.py:88``); shorter
-buckets keep the model's plain FCM.
+The embed path (``trunk_kernel.campplus_embed_fast``) takes the kernel
+at every length it supports. On an NVIDIA H100 (700 W) it beat the
+model's cuDNN convs 9.6x to 19.6x at b1, b64 and b256 of each bucket from
+1 s to 8 s, and 12.4x to 13.0x at b256 x 298 and b32 x 1598 frames (0.06
+to 0.12 against 0.90 to 1.53 ms at b1 x 98, 4.0 against 52.7 to 53.4 ms
+at b256 x 798; three runs of the crossover in ``chip_smoke.py`` phase 7,
+which fails if cuDNN wins at any of them). The JAX package's 1000-frame
+threshold is a TPU's.
 """
 
 import ctypes
@@ -47,11 +52,10 @@ from .layers import bn_affine
 __all__ = ["pack_fcm", "fcm_reference", "fcm_fused", "fcm_supported",
            "fcm_stage_times", "fcm_launch_costs", "fcm_occupancy",
            "fcm_items", "persistent_grid", "fcm_grids", "FCM_LAUNCHES",
-           "FCM_MIN_T", "FCM_MAX_FRAMES"]
+           "FCM_MAX_FRAMES"]
 
 F_IN = 80                 # input mel bins (the kernel is built for them)
 FCM_DIM = 320             # 32 channels x 10 frequencies
-FCM_MIN_T = 1000          # frames from which the embed path takes the kernel
 FCM_MAX_FRAMES = 6000     # nominal, as the JAX package's (predict's cap rules)
 _C = 32
 _BF16 = torch.bfloat16

@@ -16,10 +16,8 @@ unbiased std over each utterance's valid frames.
 - ``trunk_stats`` is the wrapper: the CUDA kernel on a CUDA tensor (with
   a launch counter), the plain version on a CPU tensor;
   ``trunk_phase_times`` times block 0's phases on the card.
-- ``campplus_embed_fast`` runs FCM -> trunk -> DenseBN head. The FCM
-  is dispatched as the JAX package's ``_fcm_forward``: the FCM kernel
-  (``fcm_kernel.fcm_fused``) for buckets of ``FCM_MIN_T`` (1000) frames
-  and more, the model's plain convs below that.
+- ``campplus_embed_fast`` runs FCM -> trunk -> DenseBN head, the FCM
+  through the FCM kernel (``fcm_kernel.fcm_fused``) at every length.
   ``make_campplus_masked_embed_fn`` wraps featurize + embed for padded
   batches.
 
@@ -48,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .fcm_kernel import FCM_MIN_T, fcm_fused, fcm_supported, pack_fcm
+from .fcm_kernel import fcm_fused, pack_fcm
 from .layers import bn_affine
 
 __all__ = ["trunk_plan", "pack_trunk", "trunk_weights", "lin1_offsets",
@@ -580,17 +578,14 @@ trunk_stats.cluster_launches = {}
 @torch.no_grad()
 def campplus_embed_fast(model, packed, packed_fcm, feats, tvalids=None):
     """Features ``(B, T, 80)`` -> embeddings ``(B, embd_dim)``: the FCM
-    through ``fcm_fused`` for ``T >= FCM_MIN_T`` (``packed_fcm`` from
-    ``pack_fcm``, ``packed`` from ``pack_trunk``) and the model's plain
-    FCM below that (JAX
-    ``pallas_campplus.py:91-112``), the trunk through ``trunk_stats``, and
-    the DenseBN head with its input in the model's dtype."""
+    through ``fcm_fused`` (``packed_fcm`` from ``pack_fcm``), the trunk
+    through ``trunk_stats`` (``packed`` from ``pack_trunk``), and the
+    DenseBN head with its input in the model's dtype (JAX
+    ``pallas_campplus.py:91-112``, whose bucket threshold was measured on
+    a TPU; on the H100 the kernel wins at every bucket). Both kernels
+    raise on a shape they do not serve."""
     dtype = model.DenseBN_0.Dense_0.weight.dtype
-    t = feats.shape[1]
-    if t >= FCM_MIN_T and fcm_supported(t, feats.shape[2]):
-        fcm_out = fcm_fused(packed_fcm, feats)
-    else:
-        fcm_out = model.FCM_0(feats.to(dtype))
+    fcm_out = fcm_fused(packed_fcm, feats)
     stats = trunk_stats(packed, fcm_out, tvalids)
     return model.DenseBN_0(stats.to(dtype)).float()
 

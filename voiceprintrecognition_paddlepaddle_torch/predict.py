@@ -6,9 +6,8 @@ Every config in ``configs/`` is served: CAM++, ECAPA-TDNN, TDNN,
 Res2Net, ResNetSE, ERes2Net and ERes2NetV2, on any feature method.
 
 The kernel path is ``trunk_kernel.make_campplus_masked_embed_fn``: the
-fbank kernel, CMN, the FCM (the FCM kernel from 1000 frames, the 16 s
-bucket and up; plain convs below), the whole-trunk kernel and the DenseBN
-head. On ``device="cuda"`` it runs the CUDA kernels and never falls back;
+fbank kernel, CMN, the FCM kernel, the whole-trunk kernel and the
+DenseBN head. On ``device="cuda"`` it runs the CUDA kernels and never falls back;
 on ``device="cpu"`` the same wrappers run their plain PyTorch versions.
 Batches pad to bucketed lengths and carry per-utterance length ratios, so
 a padded clip gives its exact-length embedding.

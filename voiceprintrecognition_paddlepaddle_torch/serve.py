@@ -37,6 +37,7 @@ import os
 import queue
 import struct
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -168,6 +169,27 @@ def make_handler(predictor, batcher=None):
     return Handler
 
 
+def _marks_answers(handler):
+    """``handler`` with ``end_headers`` telling its ``ServingHTTPServer``
+    that the thread has started its final response: a status of 200 or
+    more (not an interim 100 Continue) on a connection that closes after
+    it (a kept-alive connection may bring another request first)."""
+
+    class Marked(handler):
+        def send_response_only(self, code, message=None):
+            self._response_code = code
+            super().send_response_only(code, message)
+
+        def end_headers(self):
+            if (getattr(self, "_response_code", 0) >= 200
+                    and self.close_connection):
+                self.server._answered()
+            super().end_headers()
+
+    Marked.__name__ = Marked.__qualname__ = handler.__name__
+    return Marked
+
+
 class ServingHTTPServer(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` that hands each request to one of at most
     ``workers`` long-lived threads instead of a new thread per request,
@@ -175,31 +197,44 @@ class ServingHTTPServer(ThreadingHTTPServer):
     of 5 resets connections past that).
 
     Long-lived threads matter on the card: the first cuDNN call in a
-    thread creates its cuDNN handle, and the plain FCM (buckets under 1000
-    frames) then takes about 31 ms instead of 2 ms (NVIDIA H100 80GB HBM3,
+    thread creates its cuDNN handle. The six other backbones run cuDNN
+    convs, and cuDNN's CAM++ FCM at b1 x 398 frames took 26-32 ms from a
+    new thread against 1.1-1.5 ms from a thread that had called it
+    before; the stock CAM++, whose served path runs the three kernels,
+    still took 3.4-3.9 ms a 3 s predict_batch from a new thread against
+    2.4-2.6 ms (host wall medians of three runs, NVIDIA H100 80GB HBM3,
     700 W). A new thread per request paid that on every request.
 
-    A request goes to the thread that went idle last; a thread is idle
-    again once its handler has answered, before it closes the connection.
-    A request that finds every thread busy waits in arrival order, and
-    takes the first thread that frees; only if none frees within
-    ``spawn_after_s`` (and fewer than ``workers`` exist) do new threads
-    start. So a client's next request, which can arrive before the thread
-    that answered it is free again, finds that thread (a
-    ``ThreadPoolExecutor`` started another one then), and a burst of
-    concurrent requests still grows the pool at once."""
+    A request goes to the thread that went idle last. A request that finds
+    no idle thread waits in arrival order and takes the first thread that
+    frees. If none frees within ``spawn_after_s``, new threads start (up to
+    ``workers``), one for each waiting request that no answering thread
+    will take: a thread whose handler has started its final response
+    (``end_headers`` of a status of 200 or more on a connection that
+    closes after it) takes the oldest waiting request once it has wound
+    that up, and is waited for up to ``handover_s`` from that start. So a
+    client's next request, which can arrive before the thread that
+    answered it is idle again, waits for that thread however late the
+    host schedules it; an answer that stalls (a client that stops
+    reading) holds the next request up for ``handover_s`` at most; and a
+    handler that has not answered yet does not count (it may be waiting
+    on other requests), so a burst of concurrent requests still grows the
+    pool at once."""
 
     request_queue_size = 256
     workers = 64
     spawn_after_s = 0.01
+    handover_s = 0.25
 
     def __init__(self, server_address, handler):
-        super().__init__(server_address, handler)
+        super().__init__(server_address, _marks_answers(handler))
         self._lock = threading.Lock()
         self._idle = []                      # inboxes of idle threads
+        self._answering = {}                 # thread ident -> answer began
         self._waiting = collections.deque()  # requests no thread took yet
         self._serving = []
         self._timer = None
+        self._deadline = None
         self._closing = False
 
     def process_request(self, request, client_address):
@@ -209,23 +244,49 @@ class ServingHTTPServer(ThreadingHTTPServer):
                 return
             self._waiting.append((request, client_address))
             if not self._serving:
-                self._start_threads()
-            elif len(self._serving) < self.workers and self._timer is None:
-                self._timer = threading.Timer(self.spawn_after_s,
-                                              self._spawn_for_waiting)
-                self._timer.daemon = True
-                self._timer.start()
+                self._start_threads(len(self._waiting))
+            else:
+                self._arm(self.spawn_after_s)
+
+    def _answered(self):
+        """Called from a handler's thread as it starts its final response."""
+        with self._lock:
+            self._answering[threading.get_ident()] = time.monotonic()
+
+    def _arm(self, delay):
+        """Run ``_spawn_for_waiting`` in ``delay`` s, unless it is due
+        sooner already; the caller holds the lock."""
+        if len(self._serving) >= self.workers or self._closing:
+            return
+        deadline = time.monotonic() + delay
+        if self._timer is not None:
+            if self._deadline <= deadline:
+                return
+            self._timer.cancel()
+        self._deadline = deadline
+        self._timer = threading.Timer(delay, self._spawn_for_waiting)
+        self._timer.daemon = True
+        self._timer.start()
 
     def _spawn_for_waiting(self):
         with self._lock:
+            if threading.current_thread() is not self._timer:
+                return  # replaced by a sooner timer
             self._timer = None
-            self._start_threads()
+            now = time.monotonic()
+            began = [t for t in self._answering.values()
+                     if now - t < self.handover_s]
+            self._start_threads(len(self._waiting) - len(began))
+            if self._waiting and began:
+                self._arm(min(began) + self.handover_s - now)
 
-    def _start_threads(self):
-        """A new thread for each waiting request, up to ``workers``; the
-        caller holds the lock."""
-        while (self._waiting and len(self._serving) < self.workers
-               and not self._closing):
+    def _start_threads(self, n):
+        """Up to ``n`` new threads, each taking the oldest waiting request,
+        within ``workers``; the caller holds the lock."""
+        for _ in range(n):
+            if (not self._waiting or len(self._serving) >= self.workers
+                    or self._closing):
+                return
             inbox = queue.SimpleQueue()
             inbox.put(self._waiting.popleft())
             thread = threading.Thread(
@@ -243,6 +304,7 @@ class ServingHTTPServer(ThreadingHTTPServer):
                 self.handle_error(request, client_address)
             finally:
                 with self._lock:
+                    self._answering.pop(threading.get_ident(), None)
                     if self._waiting:
                         inbox.put(self._waiting.popleft())
                     elif self._closing:
