@@ -1,0 +1,9 @@
+"""Shared by the idle readers: the share of the traced window in which no
+operation ran on the device, in percent."""
+
+
+def idle(reading):
+    trace = reading.get("trace")
+    if trace is None or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
