@@ -6,11 +6,17 @@ Replaces the reference's multiprocess ``paddle.io.DataLoader`` workers
 the native library and numpy, so a thread pool with a bounded prefetch
 queue keeps the card fed without process spawns; the waveform DSP runs on
 the device in the train step. Batches come out in the sampler's order.
+
+Spans (``utils.tracing``): ``vpr.loader.load``, one batch's reads and
+collate on a worker thread, and ``vpr.loader.wait``, the consumer's wait
+for it; both carry the batch's index in the epoch as ``id``.
 """
 
 import os
 import queue
 import threading
+
+from ..utils import tracing
 
 __all__ = ["DataLoader"]
 
@@ -50,15 +56,16 @@ class DataLoader:
                 except queue.Empty:
                     return
                 try:
-                    # batch-level native fast path (GIL-free C++ thread
-                    # pool) when the dataset provides one
-                    items = (self.dataset.load_batch(
-                                 indices, n_threads=self._native_threads)
-                             if hasattr(self.dataset, "load_batch")
-                             else None)
-                    if items is None:
-                        items = [self.dataset[j] for j in indices]
-                    batch = self.collate_fn(items)
+                    with tracing.span("vpr.loader.load", id=i):
+                        # batch-level native fast path (GIL-free C++
+                        # thread pool) when the dataset provides one
+                        items = (self.dataset.load_batch(
+                                     indices, n_threads=self._native_threads)
+                                 if hasattr(self.dataset, "load_batch")
+                                 else None)
+                        if items is None:
+                            items = [self.dataset[j] for j in indices]
+                        batch = self.collate_fn(items)
                 except Exception as e:  # surface worker errors to consumer
                     batch = e
                 # emit strictly in order so epochs are deterministic
@@ -73,8 +80,9 @@ class DataLoader:
         for t in threads:
             t.start()
         try:
-            for _ in range(len(batches)):
-                item = out_q.get()
+            for i in range(len(batches)):
+                with tracing.span("vpr.loader.wait", id=i):
+                    item = out_q.get()
                 if isinstance(item, Exception):
                     raise item
                 yield item

@@ -10,12 +10,15 @@ Requests of mixed durations are safe: ``predict_batch`` buckets the
 window's clips to a padded length and masks the padding on the device.
 """
 
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
 
 import numpy as np
+
+from ..utils import tracing
 
 __all__ = ["MicroBatcher"]
 
@@ -32,6 +35,11 @@ class MicroBatcher:
     for companions; ``max_batch`` caps device batch size. Counters
     ``batches``/``items`` expose the achieved aggregation. An exception
     raised by ``predict_batch`` reaches every waiter of that batch.
+
+    Spans (``utils.tracing``), all with the batch's sequence number as
+    ``id``: ``vpr.batcher.wait``, each request's wait from its enqueue to
+    the start of its batch, and ``vpr.batcher.batch``, the batch's
+    ``predict_batch`` call.
     """
 
     def __init__(self, predictor, window_ms=5.0, max_batch=64):
@@ -42,6 +50,7 @@ class MicroBatcher:
         self.max_batch = int(max_batch)
         self.batches = 0
         self.items = 0
+        self._seq = itertools.count()       # the ``id`` of each batch's spans
         self._q = queue.Queue()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -49,7 +58,7 @@ class MicroBatcher:
     # ------------------------------------------------------------------
     def embed_async(self, samples):
         fut = Future()
-        self._q.put((np.asarray(samples, np.float32), fut))
+        self._q.put((np.asarray(samples, np.float32), fut, time.time_ns()))
         return fut
 
     def embed(self, samples):
@@ -68,16 +77,21 @@ class MicroBatcher:
                     batch.append(self._q.get(timeout=timeout))
                 except queue.Empty:
                     break
+            seq = next(self._seq)
+            start = time.time_ns()
+            for _, _, queued in batch:
+                tracing.add("vpr.batcher.wait", queued, start, id=seq)
             try:
                 # batch_size must cover the aggregated window, else
                 # predict_batch's default (32) re-splits the device batch
-                embs = self.predictor.predict_batch(
-                    [s for s, _ in batch], batch_size=self.max_batch)
+                with tracing.span("vpr.batcher.batch", id=seq):
+                    embs = self.predictor.predict_batch(
+                        [s for s, _, _ in batch], batch_size=self.max_batch)
             except Exception as e:  # propagate to every waiter
-                for _, fut in batch:
+                for _, fut, _ in batch:
                     fut.set_exception(e)
                 continue
             self.batches += 1
             self.items += len(batch)
-            for (_, fut), emb in zip(batch, embs):
+            for (_, fut, _), emb in zip(batch, embs):
                 fut.set_result(np.asarray(emb))

@@ -19,7 +19,9 @@ unbiased std over each utterance's valid frames.
 - ``campplus_embed_fast`` runs FCM -> trunk -> DenseBN head, the FCM
   through the FCM kernel (``fcm_kernel.fcm_fused``) at every length.
   ``make_campplus_masked_embed_fn`` wraps featurize + embed for padded
-  batches.
+  batches. Both record the spans ``vpr.embed`` (the call) and
+  ``vpr.embed.{featurize,fcm,trunk,head}`` while tracing is on
+  (``utils.tracing``).
 
 The trunk kernel serves up to ``MAX_T_RAW`` frames (the 32 s bucket,
 3198 frames; ``t_valid <= 1600``). Each utterance runs on a thread-block
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from .fcm_kernel import fcm_fused, pack_fcm
 from .layers import bn_affine
 
@@ -585,9 +588,12 @@ def campplus_embed_fast(model, packed, packed_fcm, feats, tvalids=None):
     a TPU; on the H100 the kernel wins at every bucket). Both kernels
     raise on a shape they do not serve."""
     dtype = model.DenseBN_0.Dense_0.weight.dtype
-    fcm_out = fcm_fused(packed_fcm, feats)
-    stats = trunk_stats(packed, fcm_out, tvalids)
-    return model.DenseBN_0(stats.to(dtype)).float()
+    with tracing.span("vpr.embed.fcm"):
+        fcm_out = fcm_fused(packed_fcm, feats)
+    with tracing.span("vpr.embed.trunk"):
+        stats = trunk_stats(packed, fcm_out, tvalids)
+    with tracing.span("vpr.embed.head"):
+        return model.DenseBN_0(stats.to(dtype)).float()
 
 
 def make_campplus_masked_embed_fn(model, featurizer):
@@ -600,9 +606,12 @@ def make_campplus_masked_embed_fn(model, featurizer):
     packed_fcm = pack_fcm(model)
 
     def call(waves, ratios=None):
-        feats = featurizer(waves, input_lens_ratio=ratios)
-        t_valid, _ = trunk_geometry(feats.shape[1])
-        tvalids = None if ratios is None else tvalids_from_ratios(ratios, t_valid)
-        return campplus_embed_fast(model, packed, packed_fcm, feats, tvalids)
+        with tracing.span("vpr.embed"):
+            with tracing.span("vpr.embed.featurize"):
+                feats = featurizer(waves, input_lens_ratio=ratios)
+            t_valid, _ = trunk_geometry(feats.shape[1])
+            tvalids = (None if ratios is None
+                       else tvalids_from_ratios(ratios, t_valid))
+            return campplus_embed_fast(model, packed, packed_fcm, feats, tvalids)
 
     return call

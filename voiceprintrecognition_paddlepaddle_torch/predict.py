@@ -51,6 +51,7 @@ format (users_name / faces_feature / users_image_path).
 """
 
 import copy
+import itertools
 import os
 import pickle
 import shutil
@@ -69,6 +70,7 @@ from .ops.audio import AudioSegment
 from .ops.features import AudioFeaturizer
 from .utils.checkpoint import find_weights, read_weights
 from .utils.config import load_yaml
+from .utils import tracing
 from .utils.logger import logger
 from .utils.utils import dict_to_object
 
@@ -151,6 +153,7 @@ class Predictor:
             logger.info(f"data-parallel serving over "
                         f"{[str(d) for d, _, _ in self._replicas]}")
         self._embed = self._replicas[0][2]
+        self._calls = itertools.count()     # the ``id`` of each call's spans
         if kernel_path and self.device.type == "cuda":
             # build and load the kernels now, not in a first request
             from ._build import kernel_library
@@ -326,40 +329,47 @@ class Predictor:
         path, and chunks whose bucket is longer than
         ``MAX_KERNEL_BUCKET_SAMPLES``, run the plain model. With
         ``data_parallel``, a chunk of at least as many clips as devices is
-        split over them (the module docstring)."""
-        samples = []
-        for audio in audios_data:
-            if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
-                samples.append(audio)
-            else:
-                samples.append(self._load_audio(audio, sample_rate).samples)
-        n_dev = len(self._replicas)
-        features = []
-        for i in range(0, len(samples), batch_size):
-            chunk = samples[i:i + batch_size]
-            max_len = bucket_length(max(len(s) for s in chunk))
-            # data parallel: n_dev x a power of two rows, as JAX pads
-            use_dp = n_dev > 1 and len(chunk) >= n_dev
-            b_pad = n_dev if use_dp else len(chunk)
-            while b_pad < len(chunk):
-                b_pad *= 2
-            waves = np.zeros((b_pad, max_len), np.float32)
-            ratios = np.ones((b_pad,), np.float32)
-            for j, s in enumerate(chunk):
-                waves[j, :len(s)] = s
-                ratios[j] = len(s) / max_len
-            if use_dp:
-                share = b_pad // n_dev
-                # launch every share first, then copy back: the devices
-                # work at once
-                embs = [self._embed_on(r, waves[r * share:(r + 1) * share],
-                                       ratios[r * share:(r + 1) * share])
-                        for r in range(n_dev)]
-                emb = torch.cat([e.cpu() for e in embs])[:len(chunk)]
-            else:
-                emb = self._embed_on(0, waves, ratios).cpu()
-            features.append(emb.numpy())
-        return np.concatenate(features, axis=0)
+        split over them (the module docstring). Its spans: ``vpr.predict``
+        (the call's number as ``id``) around ``vpr.predict.stage``,
+        ``.copy_in``, ``.model`` and ``.copy_out`` of each chunk."""
+        with tracing.span("vpr.predict", id=next(self._calls)):
+            samples = []
+            for audio in audios_data:
+                if isinstance(audio, np.ndarray) and audio.dtype == np.float32:
+                    samples.append(audio)
+                else:
+                    samples.append(self._load_audio(audio, sample_rate).samples)
+            n_dev = len(self._replicas)
+            features = []
+            for i in range(0, len(samples), batch_size):
+                chunk = samples[i:i + batch_size]
+                with tracing.span("vpr.predict.stage"):
+                    max_len = bucket_length(max(len(s) for s in chunk))
+                    # data parallel: n_dev x a power of two rows, as JAX pads
+                    use_dp = n_dev > 1 and len(chunk) >= n_dev
+                    b_pad = n_dev if use_dp else len(chunk)
+                    while b_pad < len(chunk):
+                        b_pad *= 2
+                    waves = np.zeros((b_pad, max_len), np.float32)
+                    ratios = np.ones((b_pad,), np.float32)
+                    for j, s in enumerate(chunk):
+                        waves[j, :len(s)] = s
+                        ratios[j] = len(s) / max_len
+                if use_dp:
+                    share = b_pad // n_dev
+                    # launch every share first, then copy back: the devices
+                    # work at once
+                    embs = [self._embed_on(r, waves[r * share:(r + 1) * share],
+                                           ratios[r * share:(r + 1) * share])
+                            for r in range(n_dev)]
+                    with tracing.span("vpr.predict.copy_out"):
+                        emb = torch.cat([e.cpu() for e in embs])[:len(chunk)]
+                else:
+                    emb = self._embed_on(0, waves, ratios)
+                    with tracing.span("vpr.predict.copy_out"):
+                        emb = emb.cpu()
+                features.append(emb.numpy())
+            return np.concatenate(features, axis=0)
 
     def _embed_on(self, replica, waves, ratios):
         """Embeddings of the numpy batch ``waves`` on the device of
@@ -371,12 +381,14 @@ class Predictor:
             embed = self._embed
         guard = torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
         with guard:
-            waves_t = torch.from_numpy(waves).to(dev)
-            if (embed is not None
-                    and waves.shape[1] <= MAX_KERNEL_BUCKET_SAMPLES):
-                exact = bool(np.all(ratios == 1.0))
-                return embed(waves_t, None if exact else ratios)
-            return self._embed_plain(waves_t, ratios, model)
+            with tracing.span("vpr.predict.copy_in"):
+                waves_t = torch.from_numpy(waves).to(dev)
+            with tracing.span("vpr.predict.model"):
+                if (embed is not None
+                        and waves.shape[1] <= MAX_KERNEL_BUCKET_SAMPLES):
+                    exact = bool(np.all(ratios == 1.0))
+                    return embed(waves_t, None if exact else ratios)
+                return self._embed_plain(waves_t, ratios, model)
 
     @torch.no_grad()
     def _embed_plain(self, waves, ratios, model=None):

@@ -110,6 +110,7 @@ from .predict import (MAX_KERNEL_BUCKET_SAMPLES, _load_configs,
 from .utils.checkpoint import (CHECKPOINT_FORMATS, AsyncSaver,
                                load_checkpoint, load_pretrained,
                                save_checkpoint)
+from .utils import tracing
 from .utils.logger import logger
 from .utils.utils import dict_to_object, print_arguments
 
@@ -421,29 +422,38 @@ class Trainer:
 
     def train_step(self, kind, data, labels, lens):
         """One microbatch already on the device; returns ``(loss, acc)``
-        as device scalars (no host sync)."""
-        feats = self.featurize(kind, data, lens)
-        net = self._train_net()
-        # DDP all-reduces the gradients on the microbatch of an update only
-        final = (self.step + 1) % self.accum_steps == 0
-        sync = (net.no_sync() if isinstance(net, DistributedDataParallel)
-                and not final else nullcontext())
-        with sync:
-            with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                                enabled=self.amp):
-                loss, logits = net(feats, lens, labels, self._margin())
-            (loss / self.accum_steps if self.accum_steps > 1
-             else loss).backward()
-        self.step += 1
-        scheduled_step(self.optimizer, self.lr_schedule, self.step,
-                       self.accum_steps)
-        with torch.no_grad():
-            logits = logits.detach()
-            if self._loss_name() == "SubCenterLoss":
-                k = self.configs.loss_conf.get("loss_args", {}).get("K", 3)
-                logits = torch.amax(logits.reshape(logits.shape[0], -1, k), 2)
-            acc = (torch.argmax(logits, dim=-1) == labels).float().mean()
-        return loss.detach(), acc
+        as device scalars (no host sync). Its spans: ``vpr.train.step``
+        around ``vpr.train.{featurize,forward,backward,optimizer}``."""
+        with tracing.span("vpr.train.step", id=self.step):
+            with tracing.span("vpr.train.featurize"):
+                feats = self.featurize(kind, data, lens)
+            net = self._train_net()
+            # DDP all-reduces the gradients on an update's microbatch only
+            final = (self.step + 1) % self.accum_steps == 0
+            sync = (net.no_sync() if isinstance(net, DistributedDataParallel)
+                    and not final else nullcontext())
+            with sync:
+                with tracing.span("vpr.train.forward"), torch.autocast(
+                        self.device.type, dtype=torch.bfloat16,
+                        enabled=self.amp):
+                    loss, logits = net(feats, lens, labels, self._margin())
+                with tracing.span("vpr.train.backward"):
+                    (loss / self.accum_steps if self.accum_steps > 1
+                     else loss).backward()
+            self.step += 1
+            with tracing.span("vpr.train.optimizer"):
+                scheduled_step(self.optimizer, self.lr_schedule, self.step,
+                               self.accum_steps)
+                acc = self._accuracy(logits, labels)
+            return loss.detach(), acc
+
+    @torch.no_grad()
+    def _accuracy(self, logits, labels):
+        logits = logits.detach()
+        if self._loss_name() == "SubCenterLoss":
+            k = self.configs.loss_conf.get("loss_args", {}).get("K", 3)
+            logits = torch.amax(logits.reshape(logits.shape[0], -1, k), 2)
+        return (torch.argmax(logits, dim=-1) == labels).float().mean()
 
     def _train_net(self):
         """The step's module: ``_TrainNet``, wrapped in DDP when a process
@@ -464,10 +474,11 @@ class Trainer:
         return self._net
 
     def _to_device(self, arr):
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        with tracing.span("vpr.train.to_device"):
+            t = torch.from_numpy(arr)
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
 
     # ------------------------------------------------------------------
     # public API (reference surface)
