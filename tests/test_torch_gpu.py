@@ -120,11 +120,17 @@ def model(cuda):
     return m.to(cuda).eval().requires_grad_(False)
 
 
+# A ragged 4 s batch whose valid counts straddle every 16- and 64-row
+# tile edge of its 208 trunk rows: at clusters of 2, 4 and 8 some ranks
+# own no valid row (and at 8 the last owns no row at all).
+RAGGED_4S = [1, 16, 63, 64, 65, 128, 129, 193, 199]
+
 # (t_raw, tvalids, cluster): the default split (cluster None), then every
 # cluster size at one request's length and at the 16 s and 32 s buckets;
-# then b256 x 298 exact (the main path's batch, its own default split) and
-# a ragged 8 s batch at every cluster size. Every batch runs the layers
-# whose cin (128 + 32 li) is no multiple of the kernel's 64-column K slice.
+# then b256 x 298 exact (the main path's batch, its own default split), a
+# ragged 8 s batch and the ragged 4 s batch at every cluster size. Every
+# batch runs the layers whose cin (128 + 32 li) is no multiple of the
+# kernel's 64-column K slice.
 TRUNK_CASES = [
     (3198, None, None), (3198, [1600, 1101, 99], None), (1598, None, None),
     (1598, [800, 433, 1], None), (798, None, None),
@@ -133,7 +139,8 @@ TRUNK_CASES = [
     (t_raw, tvalids, cluster)
     for t_raw, tvalids in ((398, [150]), (1598, [800, 433, 1]),
                            (3198, [1600, 1101, 99]), (798, [399, 250, 37]))
-    for cluster in (1, 2, 4, 8)] + [(298, 256, None)]
+    for cluster in (1, 2, 4, 8)] + [(298, 256, None)] + [
+    (398, RAGGED_4S, cluster) for cluster in (1, 2, 4, 8)]
 
 
 @pytest.mark.parametrize("t_raw,tvalids,cluster", TRUNK_CASES)
@@ -219,6 +226,71 @@ def test_trunk_launches_of_different_sizes_from_many_threads(cuda, model):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert not errors and not mismatches, (errors[:3], mismatches[:3])
+
+
+def _ragged_4s(model, cuda):
+    """The ragged 4 s batch's FCM output in bf16, as the kernel takes it
+    (so a launch allocates no copy of it)."""
+    feats = torch.from_numpy(np.random.RandomState(6).randn(
+        len(RAGGED_4S), 398, 80).astype(np.float32)).to(cuda)
+    return model.FCM_0(feats).to(torch.bfloat16).contiguous()
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_trunk_reversed_batch_gives_the_same_stats(cuda, model, cluster):
+    """The launch serves the utterances with the most valid tiles first and
+    each block computes only its valid tiles: the same utterances in the
+    reverse order (another launch order, other blocks) give each one's
+    stats bit for bit."""
+    packed = tk.pack_trunk(model)
+    fcm = _ragged_4s(model, cuda)
+    got = tk._trunk_stats_at(packed, fcm, RAGGED_4S, cluster)
+    rev = tk._trunk_stats_at(packed, fcm.flip(0), RAGGED_4S[::-1], cluster)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(rev.flip(0), got)
+
+
+def test_trunk_ignores_stale_workspace(cuda, model):
+    """The concat workspace is torch.empty and the kernel skips the rows
+    past each utterance's valid tiles: memory full of NaN that the caching
+    allocator hands back to the next launch's workspace changes nothing."""
+    packed = tk.pack_trunk(model)
+    fcm = _ragged_4s(model, cuda)
+    clean = tk.trunk_stats(packed, fcm, RAGGED_4S)
+    torch.cuda.synchronize()
+    _, t16 = tk.trunk_geometry(398)
+    stale = torch.full((2, len(RAGGED_4S), t16, tk.WIDE), float("nan"),
+                       dtype=torch.bfloat16, device=cuda)
+    torch.cuda.synchronize()
+    del stale
+    got = tk.trunk_stats(packed, fcm, RAGGED_4S)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("tvalids", [RAGGED_4S, None])
+def test_trunk_counts_the_tiles_it_runs(cuda, model, tvalids):
+    """``trunk_stats.tiles`` and ``.tiles_run`` grow by the launch's
+    ``trunk_tiles``, computed on the host: every tile without valid
+    counts."""
+    packed = tk.pack_trunk(model)
+    fcm = _ragged_4s(model, cuda)
+    b = fcm.shape[0]
+    t_valid, t16 = tk.trunk_geometry(398)
+    cs, rows = tk.default_split(b, 398, cuda)
+    tiles, run = tk.trunk_tiles(
+        np.full(b, t_valid) if tvalids is None else tvalids, t16, cs, rows)
+    before = (tk.trunk_stats.tiles, tk.trunk_stats.tiles_run)
+    tk.trunk_stats(packed, fcm, tvalids)
+    torch.cuda.synchronize()
+    assert (tk.trunk_stats.tiles - before[0],
+            tk.trunk_stats.tiles_run - before[1]) == (tiles.sum(), run.sum())
+    if tvalids is None:
+        assert run.sum() == tiles.sum()
+    else:
+        assert run.sum() < tiles.sum()
 
 
 def test_trunk_rejects_buckets_beyond_32s(cuda, model):

@@ -199,25 +199,31 @@ def test_wgmma_packing_unpacks_bit_for_bit(setup):
         assert torch.equal(packed["w_local"][l, idx], plain["w_local"][l, k, n])
 
 
-def _schedule(t16, cs):
-    """The kernel's walk over one utterance, in Python: for each block of
-    the cluster, each row pass of up to ``PASS_TILES`` 64-row tiles (one a
+def _schedule(t16, cs, tv=None):
+    """The kernel's walk over one utterance of ``tv`` valid rows (``None``:
+    every row), in Python: for each block of the cluster, its computed
+    rows (those it owns below ``tv`` rounded up to 16, csrc ``nc``), each
+    row pass of up to ``PASS_TILES`` 64-row tiles over them (one a
     warpgroup) and each thread's A chunks of a K slice (thread t of
     warpgroup wg: lines ``(t >> 3) + 16 j``, j < 4, of tile wg, columns
     ``8 * (t & 7)`` of the slice). Yields (rank, first trunk row of the
-    pass, tiles, [(trunk row, column chunk)] of the rows the block owns)."""
+    pass, tiles, [(trunk row, column chunk)] of the rows the block
+    computes)."""
     rows = tk.rows_per_block(t16, cs)
+    tv = t16 if tv is None else tv
     for rank in range(cs):
         r0 = min(rank * rows, t16)
         nr = min(r0 + rows, t16) - r0
-        for rp in range(0, nr, tk.TILE_ROWS * tk.PASS_TILES):
-            nt = min(tk.PASS_TILES, -(-(nr - rp) // tk.TILE_ROWS))
+        rv = max(r0, min(r0 + nr, tv))
+        nc = min(nr, -(-(rv - r0) // 16) * 16)
+        for rp in range(0, nc, tk.TILE_ROWS * tk.PASS_TILES):
+            nt = min(tk.PASS_TILES, -(-(nc - rp) // tk.TILE_ROWS))
             copied = []
             for tid in range(128 * nt):                  # a warpgroup a tile
                 wg, t = tid >> 7, tid & 127
                 for j in range(4):
                     row = rp + wg * tk.TILE_ROWS + (t >> 3) + 16 * j
-                    if row < nr:
+                    if row < nc:
                         copied.append((r0 + row, t & 7))
             yield rank, r0 + rp, nt, copied
 
@@ -264,6 +270,81 @@ def test_tile_schedule_covers_every_row_and_column_once():
         for rank in set(passes):
             want = -(-min(rows, t16 - rank * rows) // (tk.TILE_ROWS * tk.PASS_TILES))
             assert passes.count(rank) == want, (t16, cs, rank)
+
+
+# valid counts at the tile edges; None: the utterance's last row (t16)
+SCHEDULE_TVALIDS = [1, 15, 16, 63, 64, 65, 128, 129, 192, 193, None]
+
+
+@pytest.mark.parametrize("tv", SCHEDULE_TVALIDS)
+def test_tile_schedule_runs_only_the_valid_tiles(tv):
+    """For every t16 and split the rule can take, and a valid count at each
+    tile edge: every row below it is staged exactly once per 8-column
+    chunk, no row at or past it rounded up to 16 is, a block runs
+    ceil(its valid tiles / ``PASS_TILES``) passes (none without valid
+    rows), and ``trunk_tiles`` counts the tiles of the blocks' rows and
+    the tiles the walk runs."""
+    for t16, cs in _split_cases():
+        v = t16 if tv is None else tv
+        if v > t16:
+            continue
+        rows = tk.rows_per_block(t16, cs)
+        seen, run, passes = {}, 0, {}
+        for rank, g0, nt, copied in _schedule(t16, cs, v):
+            run += nt
+            passes[rank] = passes.get(rank, 0) + 1
+            for g, q in copied:
+                seen[(g, q)] = seen.get((g, q), 0) + 1
+        v16 = -(-v // 16) * 16
+        assert all(g < v16 for g, _ in seen), (t16, cs, v)
+        assert {(g, q) for g in range(v) for q in range(8)} <= set(seen), (t16, cs, v)
+        assert set(seen.values()) == {1}, (t16, cs, v)
+        for rank in range(cs):
+            r0 = min(rank * rows, t16)
+            valid = max(0, min(r0 + rows, t16, v16) - r0)
+            want = -(-(-(-valid // tk.TILE_ROWS)) // tk.PASS_TILES)
+            assert passes.get(rank, 0) == want, (t16, cs, v, rank)
+        tiles, tiles_run = tk.trunk_tiles([v, t16], t16, cs, rows)
+        owned = sum(-(-(min(r0 + rows, t16) - r0) // tk.TILE_ROWS)
+                    for r0 in (min(k * rows, t16) for k in range(cs)))
+        full = sum(nt for *_, nt, _ in _schedule(t16, cs))
+        assert tiles.tolist() == [owned, owned] and full == owned, (t16, cs)
+        assert tiles_run.tolist() == [run, full], (t16, cs, v)
+
+
+def test_launch_order_puts_the_most_tiles_first():
+    """A permutation of the batch whose tiles run do not increase, ties in
+    batch order; the identity when every utterance is whole."""
+    rng = np.random.RandomState(7)
+    t_valid, t16 = tk.trunk_geometry(398)
+    tv = rng.randint(1, t_valid + 1, 256)
+    for cs in (1, 2, 4, 8):
+        rows = tk.rows_per_block(t16, cs)
+        _, run = tk.trunk_tiles(tv, t16, cs, rows)
+        order = tk.launch_order(run)
+        assert sorted(order.tolist()) == list(range(256))
+        assert (np.diff(run[order]) <= 0).all(), cs
+        for n in set(run.tolist()):                      # stable
+            same = order[run[order] == n]
+            assert (np.diff(same) > 0).all(), (cs, n)
+        _, whole = tk.trunk_tiles(np.full(256, t_valid), t16, cs, rows)
+        assert tk.launch_order(whole).tolist() == list(range(256))
+
+
+def test_embed_4s_skips_about_three_tenths_of_the_tiles():
+    """The benchmark's 2-4 s clips padded to the 4 s bucket (398 frames;
+    ``benchmark/traffic_gen.lengths``' stratified lengths), at b256's
+    split on the H100 (one block of 208 rows a clip): the kernel runs
+    about 0.70 of the tiles the blocks own."""
+    t_valid, t16 = tk.trunk_geometry(398)
+    cs, rows = tk.trunk_split(256, t16, h100_resident)
+    assert (cs, rows) == (1, 208)
+    n = 2048
+    lens = np.round((2.0 + 2.0 * (np.arange(n) + 0.5) / n) * 16000)
+    tv = tk.tvalids_from_ratios((lens / 64000).astype(np.float32), t_valid)
+    tiles, run = tk.trunk_tiles(tv, t16, cs, rows)
+    assert set(tiles.tolist()) == {4} and set(run.tolist()) == {2, 3, 4}
+    assert 0.68 < run.sum() / tiles.sum() < 0.71
 
 
 def test_each_append_lies_in_the_next_products_last_slice():

@@ -39,7 +39,23 @@
 // clip or a small batch so spreads over more SMs. The stem, each layer's
 // wide BN-ReLU and 1x1 bottleneck, the gated append and the transits are
 // row-local: a block runs them over its own rows of the concat (two global
-// ping-pong buffers: a transit reads one and writes the other).
+// ping-pong buffers: a transit reads one and writes the other), and only
+// over the rows it owns below the utterance's valid count rounded up to 16
+// ([r0, r0 + nc) below): its row passes and tiles follow that span, so a
+// padded clip runs the tiles of its length and not of the bucket's, and a
+// block with no valid rows runs no product and no append (it still meets
+// every cluster barrier and serves its zero x2 halo). Rows a block skips
+// are never written, in the concat or in x2, and feed no valid row: a
+// product's row depends on that row of A alone, the epilogues select zero
+// for every row at or past the valid count (a select, so whatever a
+// skipped row of the torch.empty workspace holds, NaN included, goes no
+// further), x2 starts zero and stays so past the computed rows, and the
+// pooling reads valid rows only.
+// Launch order: cluster i serves utterance order[i] (TrunkParams.order),
+// which the host wrapper sorts by tiles run, most first and stable, so
+// the longest utterances start in the first wave and the short ones fill
+// the last; outputs still go to their utterance's row. With no valid
+// counts the order is the identity (a null pointer).
 //
 // Products: every product is wgmma.mma_async (bf16 x bf16 -> fp32) with
 // both operands in shared memory in the 128-byte swizzle, K-major (a row
@@ -84,8 +100,8 @@
 // The stem (im2col of every other FCM row, zero outside the clip; 2 % of
 // the time) fills its ring with cp.async instead. The layer's wide affine
 // comes with the first slice into shared memory; trunk_weights reads the
-// packed weights back. Rows past a block's own are never written; rows
-// past an utterance's valid count are written as zero.
+// packed weights back. Rows past a block's own are never written; the
+// computed rows past an utterance's valid count are written as zero.
 //
 // x2 (the bottleneck's output) stays in shared memory as 16 column chunks
 // of (tiles x 64 + 4) rows of 8 channels, so the local k3 conv's A is x2
@@ -100,7 +116,7 @@
 //     the two x2 rows on each side that the neighbouring ranks own. Each
 //     block copies them into its guard rows after a cluster barrier. At
 //     the utterance's edges the guard rows stay zero; rows past the valid
-//     count are zero in x2 anyway.
+//     count are zero in x2 anyway (written so, or never written).
 //   - the CAM context: each block writes its partial per-segment sums of
 //     x2 (segs x 128 fp32) to its own shared memory; after the barrier
 //     every block adds the partials of all ranks in rank order (so every
@@ -140,6 +156,7 @@ typedef __nv_bfloat16 bf16;
 struct TrunkParams {
   const bf16* x;          // (B, T_raw, 320) FCM output, frequency-major
   const int* tvalid;      // (B,) valid trunk frames, in [1, t_valid]
+  const int* order;       // null (the identity), or (B,): cluster i serves utterance order[i]
   float* out;             // (B, 1024) mean || biased std
   bf16* ws;               // (2, B, t16, 1024) concat ping-pong workspace
   const bf16* w_stem;     // 1600 x 128 in wgmma slices (trunk_kernel.pack_trunk)
@@ -798,8 +815,9 @@ __device__ __noinline__ uint32_t wide_pass(const WideA& a, int g0, int rp, int n
 }
 
 // C[rows, 128 np : 128 np + 128] = A[rows, 0:K] @ B[0:K, same] for each
-// of `npass` column passes, over the block's nr rows (trunk rows g0..) in
-// row passes of up to KT tiles. Bp: the weight's packed slices, [np][K /
+// of `npass` column passes, over nr rows of the block (trunk rows g0..:
+// the rows it computes, nc) in row passes of up to KT tiles (none when nr
+// is 0). Bp: the weight's packed slices, [np][K /
 // 64, rounded up][16 KB], zero past K. A WideA's affine (its first K of a
 // and of b) is staged into ab_s once for all passes; with several column
 // passes the first transforms A and keeps it, the others read it kept.
@@ -868,7 +886,8 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const int t16 = p.t16, cs = p.cs, R = p.R;
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / cs, rank = blockIdx.x % cs;
+  const int cluster = blockIdx.x / cs, rank = blockIdx.x % cs;
+  const int b = p.order != nullptr ? p.order[cluster] : cluster;
   const int segs = seg_cap(p.t_valid);
   const int ldk = x2_rows(R) * 8;  // x2 elements between column chunks
   unsigned char* ring = smem_raw;
@@ -891,21 +910,23 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
   Stamp stamp;
   stamp.start(p.phase);
   const int tv = min(max(p.tvalid[b], 1), p.t_valid);
-  // this block's rows [r0, r1) and valid rows [r0, rv)
+  // this block's rows [r0, r1), valid rows [r0, rv) and computed rows
+  // [r0, r0 + nc): the valid ones rounded up to 16 (r0 is a multiple of 16)
   const int r0 = min(rank * R, t16), r1 = min(r0 + R, t16), nr = r1 - r0;
   const int rv = max(r0, min(r1, tv));
+  const int nc = min(nr, (rv - r0 + 15) / 16 * 16);
   const size_t buf_stride = (size_t)p.B * t16 * kWide;
   bf16* bufs[2] = {p.ws + (size_t)b * t16 * kWide,
                    p.ws + buf_stride + (size_t)b * t16 * kWide};
 
-  // x2 starts zero: rows past nr (and the guard rows no neighbour feeds)
+  // x2 starts zero: rows past nc (and the guard rows no neighbour feeds)
   // stay zero; the halo rewrites the others per layer
   for (int i = tid; i < (int)(x2_bytes(R) / 16); i += kThreads)
     reinterpret_cast<uint4*>(x2_base)[i] = make_uint4(0, 0, 0, 0);
 
   // ---- stem: k5 s2 conv 320 -> 128, BN-ReLU, mask -> concat[:, :128] ----
-  gemm<KT>(StemA{p.x + (size_t)b * p.T_raw * kStemIn, p.T_raw}, r0, nr, 5 * kStemIn, p.w_stem, 1,
-           StemEpi{bufs[0], p.stem_aff, r0, nr, tv}, ring, ab_s, bars, seq);
+  gemm<KT>(StemA{p.x + (size_t)b * p.T_raw * kStemIn, p.T_raw}, r0, nc, 5 * kStemIn, p.w_stem, 1,
+           StemEpi{bufs[0], p.stem_aff, r0, nc, tv}, ring, ab_s, bars, seq);
   stamp.lap(kStem);
 
   int cur = 0, layer = 0, c_in = kInit;
@@ -935,14 +956,14 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
       // (every slice) at a block's first layer, else the previous layer's
       // append (the last slice)
       seq = gemm<KT>(WideA{&args.ws, cur * p.B + b, p.wide_ab + (size_t)layer * 2 * kWide, X}, r0,
-                     nr, cin, p.w_lin1 + lin1_off * kBn, 1,
-                     X2Epi{x2, ldk, p.lin1_aff + (size_t)layer * 3 * kBn, r0, nr, tv}, ring,
+                     nc, cin, p.w_lin1 + lin1_off * kBn, 1,
+                     X2Epi{x2, ldk, p.lin1_aff + (size_t)layer * 3 * kBn, r0, nc, tv}, ring,
                      ab_s, bars, seq, li == 0 ? 0 : slices_of(cin) - 1);
       lin1_off += slices_of(cin) * kKS;
 
       // the local conv's and the gate MLP's weights into the ring, in
       // flight while the CAM sums and the exchange run
-      {
+      if (nc > 0) {
         const bf16* wl = p.w_local + (size_t)layer * kLocalK * kGrowth;
         const bf16* w1 = p.w_cam1 + (size_t)layer * kBn * kHid;
         const bf16* w2 = p.w_cam2 + (size_t)layer * kHid * kGrowth;
@@ -1028,7 +1049,7 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
       __syncthreads();
       float yacc[16];
       const uint32_t wl_s = ring_s + kRingLocal;
-      if (ps.tile * kTile < nr) local_conv(yacc, x2_s, ldk, 0, dil, wl_s);
+      if (ps.tile * kTile < nc) local_conv(yacc, x2_s, ldk, 0, dil, wl_s);
       stamp.lap(kLocalConv);
 
       // ctx of the segments this block needs (in place over the totals)
@@ -1078,8 +1099,8 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
 
       // gate the local conv, mask, append 32 channels to the concat
       const int c0 = c_in + li * kGrowth;
-      for (int rp = 0; rp < nr; rp += kPassRows) {
-        const bool mine = rp + ps.tile * kTile < nr;
+      for (int rp = 0; rp < nc; rp += kPassRows) {
+        const bool mine = rp + ps.tile * kTile < nc;
         if (rp > 0 && mine) local_conv(yacc, x2_s, ldk, rp, dil, wl_s);
         wgmma_wait<0>();
         fence_regs(yacc);
@@ -1089,7 +1110,7 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int row = ps.row(rp, h), c = ps.col(nb);
-            if (row >= nr) continue;
+            if (row >= nc) continue;
             const int g = r0 + row;
             float v0 = 0.f, v1 = 0.f;
             if (g < tv) {
@@ -1112,8 +1133,8 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
     const bf16* wt = blk == 0 ? p.w_t0 : (blk == 1 ? p.w_t1 : p.w_t2);
     seq = gemm<KT>(WideA{&args.ws, cur * p.B + b, p.wide_ab + (size_t)(kLayers + blk) * 2 * kWide,
                          X},
-                   r0, nr, cw, wt, cw / 2 / kNP,
-                   TransitEpi{bufs[cur ^ 1], p.tbias + (size_t)blk * kFinal, r0, nr, tv}, ring,
+                   r0, nc, cw, wt, cw / 2 / kNP,
+                   TransitEpi{bufs[cur ^ 1], p.tbias + (size_t)blk * kFinal, r0, nc, tv}, ring,
                    ab_s, bars, seq, slices_of(cw) - 1);
     cur ^= 1;
     c_in = cw / 2;

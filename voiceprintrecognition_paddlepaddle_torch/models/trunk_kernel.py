@@ -38,7 +38,11 @@ Valid frames: the stem keeps ``t_valid = (T_raw - 1) // 2 + 1`` frames; a
 padded utterance with length ratio ``r`` has ``ceil(r * t_valid)`` of
 them (clamped to ``[1, t_valid]``). Rows past an utterance's valid count
 are zero after every masked write, so a padded clip gives its
-exact-length embedding.
+exact-length embedding. The kernel computes each block's rows only up to
+the valid count rounded up to 16 (``trunk_tiles`` counts the 64-row tiles
+that leaves) and serves the utterances with the most such tiles first
+(``launch_order``); a batch's embeddings are those of the kernel that
+runs every row, bit for bit.
 """
 
 import ctypes
@@ -55,6 +59,7 @@ from .layers import bn_affine
 __all__ = ["trunk_plan", "pack_trunk", "trunk_weights", "lin1_offsets",
            "trunk_geometry", "tvalids_from_ratios", "rows_per_block",
            "block_cost", "trunk_split", "default_split", "block_launch",
+           "trunk_tiles", "launch_order",
            "trunk_stats_reference", "trunk_stats", "trunk_phase_times",
            "campplus_embed_fast", "make_campplus_masked_embed_fn",
            "MAX_T_RAW", "SMEM_MAX_T16", "CLUSTER_SIZES", "TRUNK_PHASES"]
@@ -325,13 +330,38 @@ def tvalids_from_ratios(ratios, t_valid):
     return np.clip(tv, 1, t_valid)
 
 
-def _tvalid_tensor(tvalids, b, t_valid, device):
+def _tvalids(tvalids, b, t_valid):
+    """The valid counts as int32 in ``[1, t_valid]``; ``None``: every row."""
     if tvalids is None:
-        return torch.full((b,), t_valid, dtype=torch.int32, device=device)
-    tv = torch.as_tensor(np.asarray(tvalids), dtype=torch.int32)
+        return np.full(b, t_valid, np.int32)
+    tv = np.asarray(tvalids).astype(np.int32)
     if tv.shape != (b,):
-        raise ValueError(f"tvalids must have shape ({b},), got {tuple(tv.shape)}")
-    return tv.clamp(1, t_valid).to(device)
+        raise ValueError(f"tvalids must have shape ({b},), got {tv.shape}")
+    return np.clip(tv, 1, t_valid)
+
+
+def trunk_tiles(tvalids, t16, cs, rows):
+    """``(tiles, tiles_run)``, each ``(B,)``: per utterance of valid counts
+    ``tvalids`` (ints in ``[1, t_valid]``), the 64-row tiles its cluster's
+    ``cs`` blocks of ``rows`` rows hold over the rows they own, and the
+    tiles they run: a block computes its rows below the valid count
+    rounded up to 16 (csrc ``nc``), in row passes of up to ``PASS_TILES``
+    tiles."""
+    tv16 = -(-np.asarray(tvalids, np.int64) // 16) * 16
+    r0 = np.minimum(np.arange(cs) * rows, t16)
+    nr = np.minimum(r0 + rows, t16) - r0
+    nc = np.clip(tv16[:, None] - r0[None, :], 0, nr[None, :])
+    tiles = -(-nr // TILE_ROWS)
+    return (np.full(len(tv16), tiles.sum(), np.int64),
+            (-(-nc // TILE_ROWS)).sum(1))
+
+
+def launch_order(tiles_run):
+    """The utterance that each cluster of a launch serves, in launch order:
+    the most tiles run first, ties in batch order (a stable sort), so the
+    longest utterances start in the first wave. Equal counts (every
+    utterance whole) give the identity."""
+    return np.argsort(-np.asarray(tiles_run), kind="stable")
 
 
 def _mm(a, w):
@@ -361,7 +391,7 @@ def trunk_stats_reference(packed, fcm_out, tvalids=None):
     b, t_raw, _ = fcm_out.shape
     t_valid, _ = trunk_geometry(t_raw)
     dev = fcm_out.device
-    tv = _tvalid_tensor(tvalids, b, t_valid, dev).long()
+    tv = torch.from_numpy(_tvalids(tvalids, b, t_valid)).to(dev).long()
     t_idx = torch.arange(t_valid, device=dev)
     mask = (t_idx[None, :] < tv[:, None]).float()[..., None]    # (B, T, 1)
 
@@ -420,7 +450,7 @@ def trunk_stats_reference(packed, fcm_out, tvalids=None):
 class _TrunkParams(ctypes.Structure):
     """Mirror of ``TrunkParams`` in ``csrc/campplus_trunk.cu``."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "x", "tvalid", "out", "ws", "w_stem", "stem_aff", "w_lin1",
+        "x", "tvalid", "order", "out", "ws", "w_stem", "stem_aff", "w_lin1",
         "lin1_aff", "wide_ab", "w_local", "w_cam1", "w_cam2", "cam_bias",
         "w_t0", "w_t1", "w_t2", "tbias", "out_aff", "phase")] + [
         (name, ctypes.c_int) for name in ("B", "T_raw", "t_valid", "t16",
@@ -482,8 +512,11 @@ def trunk_stats(packed, fcm_out, tvalids=None):
 
     A CPU tensor runs ``trunk_stats_reference``. A CUDA tensor launches
     the CUDA kernel (bf16 in, fp32 stats out) over clusters of
-    ``default_split`` blocks per utterance, and adds one to
-    ``trunk_stats.launches`` and to ``trunk_stats.cluster_launches[cs]``."""
+    ``default_split`` blocks per utterance, the utterances in
+    ``launch_order``; it adds one to ``trunk_stats.launches`` and to
+    ``trunk_stats.cluster_launches[cs]``, and the launch's ``trunk_tiles``
+    (summed on the host) to ``trunk_stats.tiles`` and
+    ``trunk_stats.tiles_run``."""
     return _trunk_stats_at(packed, fcm_out, tvalids, None)
 
 
@@ -550,14 +583,22 @@ def _launch(packed, fcm_out, tvalids, split, phase=None):
             f"no cluster of {cs} trunk blocks of {rows} rows fits on "
             f"{torch.cuda.get_device_name(index)}")
     x = fcm_out.to(_BF16).contiguous()
-    tv = _tvalid_tensor(tvalids, b, t_valid, dev)
+    tv_host = _tvalids(tvalids, b, t_valid)
+    tiles, tiles_run = trunk_tiles(tv_host, t16, cs, rows)
+    if tvalids is None:
+        tv, order = torch.full((b,), t_valid, dtype=torch.int32, device=dev), None
+    else:
+        # the valid counts and the launch order in one copy
+        both = torch.from_numpy(np.concatenate(
+            [tv_host, launch_order(tiles_run).astype(np.int32)])).to(dev)
+        tv, order = both[:b], both[b:].data_ptr()
     out = torch.empty((b, 2 * 512), dtype=torch.float32, device=dev)
     ws = torch.empty((2, b, t16, WIDE), dtype=_BF16, device=dev)
     for k, v in packed.items():
         if v.device != dev or not v.is_contiguous():
             raise ValueError(f"packed[{k!r}] must be contiguous on {dev}")
     p = _TrunkParams(
-        x.data_ptr(), tv.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        x.data_ptr(), tv.data_ptr(), order, out.data_ptr(), ws.data_ptr(),
         *(packed[k].data_ptr() for k in (
             "w_stem", "stem_aff", "w_lin1", "lin1_aff", "wide_ab", "w_local",
             "w_cam1", "w_cam2", "cam_bias", "w_t0", "w_t1", "w_t2", "tbias",
@@ -571,11 +612,15 @@ def _launch(packed, fcm_out, tvalids, split, phase=None):
               "vpr_campplus_trunk")
     trunk_stats.launches += 1
     trunk_stats.cluster_launches[cs] = trunk_stats.cluster_launches.get(cs, 0) + 1
+    trunk_stats.tiles += int(tiles.sum())
+    trunk_stats.tiles_run += int(tiles_run.sum())
     return out, tv
 
 
 trunk_stats.launches = 0
 trunk_stats.cluster_launches = {}
+trunk_stats.tiles = 0       # 64-row tiles the launches' blocks own
+trunk_stats.tiles_run = 0   # of them, the tiles the launches ran
 
 
 @torch.no_grad()
