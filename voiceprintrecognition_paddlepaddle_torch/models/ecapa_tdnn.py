@@ -5,11 +5,19 @@ multi-layer feature aggregation over the SE blocks' outputs, an MFA TDNN
 block, pooling (ASP / SAP / TAP / TSP) with BN and a 1x1 projection to the
 embedding. Takes ``(B, T, F)``, runs ``(B, C, T)`` inside; the SE blocks
 and the pooling are length-aware.
+
+Spans (``utils.tracing``): ``vpr.ecapa`` around the forward, inside it
+``vpr.ecapa.front`` (the first TDNN block), ``vpr.ecapa.block`` (the
+block's index as ``id``) holding ``vpr.ecapa.res2net`` and
+``vpr.ecapa.se``, then ``vpr.ecapa.mfa``, ``vpr.ecapa.pool`` and
+``vpr.ecapa.head``. They time the host's dispatch: none waits for the
+device.
 """
 
 import torch
 from torch import nn
 
+from ..utils import tracing
 from .layers import BatchNorm1d, SamePadConv1d, TDNNBlock, length_to_mask
 from .pooling import POOLING_DIM_FACTOR, POOLINGS
 
@@ -82,8 +90,13 @@ class SERes2NetBlock(nn.Module):
 
     def forward(self, x, lengths=None):
         residual = self.SamePadConv1d_0(x) if self.has_shortcut else x
-        x = self.TDNNBlock_1(self.Res2NetBlock_0(self.TDNNBlock_0(x)))
-        return self.SEBlock_0(x, lengths) + residual
+        x = self.TDNNBlock_0(x)
+        with tracing.span("vpr.ecapa.res2net"):
+            x = self.Res2NetBlock_0(x)
+        x = self.TDNNBlock_1(x)
+        with tracing.span("vpr.ecapa.se"):
+            x = self.SEBlock_0(x, lengths)
+        return x + residual
 
 
 class EcapaTdnn(nn.Module):
@@ -114,12 +127,18 @@ class EcapaTdnn(nn.Module):
         self.SamePadConv1d_0 = SamePadConv1d(out, embd_dim, 1)
 
     def forward(self, x, lengths=None):
-        x = self.TDNNBlock_0(x.transpose(1, 2))
-        xl = []
-        for i in range(self.n_blocks):
-            x = getattr(self, f"SERes2NetBlock_{i}")(x, lengths)
-            xl.append(x)
-        x = self.TDNNBlock_1(torch.cat(xl, dim=1))
-        x = getattr(self, self._pool)(x.transpose(1, 2), lengths)
-        x = self.BatchNorm1d_0(x)
-        return self.SamePadConv1d_0(x[:, :, None])[:, :, 0]
+        with tracing.span("vpr.ecapa"):
+            with tracing.span("vpr.ecapa.front"):
+                x = self.TDNNBlock_0(x.transpose(1, 2))
+            xl = []
+            for i in range(self.n_blocks):
+                with tracing.span("vpr.ecapa.block", id=i):
+                    x = getattr(self, f"SERes2NetBlock_{i}")(x, lengths)
+                xl.append(x)
+            with tracing.span("vpr.ecapa.mfa"):
+                x = self.TDNNBlock_1(torch.cat(xl, dim=1))
+            with tracing.span("vpr.ecapa.pool"):
+                x = getattr(self, self._pool)(x.transpose(1, 2), lengths)
+            with tracing.span("vpr.ecapa.head"):
+                x = self.BatchNorm1d_0(x)
+                return self.SamePadConv1d_0(x[:, :, None])[:, :, 0]
