@@ -473,6 +473,138 @@ def test_http_round_trip_on_cuda(predictor):
     assert batcher.batches < batcher.items == 8
 
 
+# ---- predict_batch's staging: pinned, reused, copied without blocking -----
+@pytest.fixture(scope="module")
+def predictors(cuda, predictor, tmp_path_factory):
+    """The stock CAM++ (the kernel path), and ERes2Net and ECAPA-TDNN at
+    their configs' widths with seeded random weights (the plain path),
+    on the card; ``eres2net_split`` is ERes2Net split over cuda:0 twice."""
+    from chip_smoke import BACKBONE_CONFS, CONFIG, random_flax_variables
+    from voiceprintrecognition_paddlepaddle_torch.models import build_model
+    from voiceprintrecognition_paddlepaddle_torch.models.convert import \
+        jax_to_torch_state
+    from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
+    from voiceprintrecognition_paddlepaddle_torch.utils.utils import \
+        dict_to_object
+
+    root = tmp_path_factory.mktemp("staging")
+    out = {"campplus": predictor}
+    for key in ("eres2net", "ecapa_tdnn"):
+        cfg = dict(CONFIG, model_conf=BACKBONE_CONFS[key])
+        model = build_model(80, dict_to_object(cfg))
+        model.load_state_dict(jax_to_torch_state(
+            random_flax_variables(model, 3)))
+        path = str(root / f"{key}.pt")
+        torch.save(model.state_dict(), path)
+        out[key] = Predictor(cfg, model_path=path, device="cuda")
+        assert out[key]._embed is None
+    out["eres2net_split"] = Predictor(
+        dict(CONFIG, model_conf=BACKBONE_CONFS["eres2net"]),
+        model_path=str(root / "eres2net.pt"), device="cuda",
+        data_parallel=True, devices=["cuda:0", "cuda:0"])
+    return out
+
+
+def _clips(seed, n):
+    """An exact 4 s bucket first, then ragged 0.6-4 s clips."""
+    rng = np.random.RandomState(seed)
+    lens = [64000] + [int(rng.uniform(0.6, 4.0) * 16000)
+                      for _ in range(n - 1)]
+    return [(rng.randn(k) * 0.1).astype(np.float32) for k in lens]
+
+
+@pytest.mark.parametrize("key", ["campplus", "eres2net", "ecapa_tdnn",
+                                 "eres2net_split"])
+def test_predict_batch_stages_in_pinned_memory(predictors, key):
+    pred = predictors[key]
+    clips = _clips(40, 6)
+    waves, ratios = pred._stage(clips[:3], 4)
+    assert waves.is_pinned() and ratios.is_pinned()
+    assert pred.pinned_chunks == pred.chunks
+    before = pred.chunks
+    got = pred.predict_batch(clips, batch_size=4)
+    assert got.shape == (6, 192) and np.isfinite(got).all()
+    assert pred.chunks == before + 2
+    assert pred.pinned_chunks == pred.chunks
+
+
+@pytest.mark.parametrize("key", ["eres2net", "ecapa_tdnn", "eres2net_split"])
+def test_plain_path_syncs_only_in_its_copy_out(predictors, key):
+    """Under ``set_sync_debug_mode("error")`` a staged chunk's copies and
+    model issue no synchronizing call; a whole ``predict_batch`` of two
+    chunks warns of two syncs, each chunk's ``.cpu()``."""
+    import warnings
+
+    pred = predictors[key]
+    clips = _clips(41, 6)
+    pred.predict_batch(clips, batch_size=4)        # every shape warmed
+    waves, ratios = pred._stage(clips[:4], 4)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emb = pred._embed_on(0, waves, ratios)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert emb.is_cuda
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pred.predict_batch(clips, batch_size=4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in seen
+             if "synchroniz" in str(w.message)]
+    assert len(syncs) == 2 * (2 if key.endswith("split") else 1), syncs
+
+
+@pytest.mark.parametrize("key", ["campplus", "eres2net", "ecapa_tdnn"])
+def test_four_threads_get_the_serial_embeddings(predictors, key):
+    """Four threads call ``predict_batch`` at once on one Predictor, five
+    times each, with different clips: every answer is bit for bit the
+    serial call's, so no call's staging was reused under another's
+    copy."""
+    pred = predictors[key]
+    inputs = [_clips(50 + t, 6) for t in range(4)]
+    serial = [pred.predict_batch(c, batch_size=4) for c in inputs]
+    results = [[] for _ in inputs]
+    errors = []
+    start = threading.Barrier(len(inputs))
+
+    def work(t):
+        try:
+            start.wait(timeout=60)
+            for _ in range(5):
+                results[t].append(pred.predict_batch(inputs[t], batch_size=4))
+        except Exception as e:             # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,))
+               for t in range(len(inputs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert errors == []
+    for want, got in zip(serial, results):
+        assert len(got) == 5 and all(np.array_equal(g, want) for g in got)
+    assert pred.pinned_chunks == pred.chunks
+
+
+@pytest.mark.parametrize("key", ["eres2net", "ecapa_tdnn", "eres2net_split"])
+def test_plain_embeddings_equal_the_zeroed_staging(predictors, key):
+    """Bit for bit the embeddings of a zeroed pageable staging:
+    ``np.zeros``, a blocking pageable copy and numpy ratios
+    (``tests/test_torch_predict_staging.py``)."""
+    from test_torch_predict_staging import zeroed_staging_embeddings
+
+    pred = predictors[key]
+    clips = _clips(42, 7)
+    want = zeroed_staging_embeddings(pred, clips, 3)
+    got = pred.predict_batch(clips, batch_size=3)
+    assert np.array_equal(got, want)
+
+
 
 # ---- the six other backbones and the other front ends ---------------------
 @pytest.mark.parametrize("key", ["tdnn", "ecapa_tdnn", "res2net",

@@ -3,7 +3,7 @@ free (the shared no-op, no allocation); on inside ``recording()`` and
 while a ``torch.profiler`` run records, from every thread; nested spans
 with their parent, thread and ``id``; the profiler's clock; the cap; and
 the spans that ``Predictor.predict_batch`` (with the kernel path's embed
-function), the ``DataLoader``, ``Trainer.train_step`` and the
+function, and on the plain path on one device and two), the ``DataLoader``, ``Trainer.train_step`` and the
 ``MicroBatcher`` record, on small CPU inputs."""
 
 import inspect
@@ -228,6 +228,43 @@ def test_predict_batch_records_the_entry_and_the_embed_function(
                   if s.parent == calls[1])
     assert [n for _, n in kids] == ["vpr.predict.stage", "vpr.predict.copy_in",
                                     "vpr.predict.model", "vpr.predict.copy_out"]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one", "split"])
+def test_predict_batch_records_the_entry_on_the_plain_path(tmp_path, split):
+    """ERes2Net (the plain path), on one device and split over two: the
+    four ``vpr.predict.*`` spans that ``entry_host_ms.predict`` and
+    ``entry_idle.predict`` read keep their names and nesting, one
+    ``.stage`` and ``.copy_out`` a chunk and one ``.copy_in`` and
+    ``.model`` a device's share, in that order."""
+    cfg = load_yaml(os.path.join(ROOT, "configs", "eres2net.yml"))
+    cfg["model_conf"]["model_args"] = dict(
+        embd_dim=16, m_channels=8, num_blocks=(1, 1, 1, 1))
+    torch.manual_seed(0)
+    path = str(tmp_path / "model.pt")
+    torch.save(build_model(80, dict_to_object(cfg)).state_dict(), path)
+    kw = dict(data_parallel=True, devices=["cpu", "cpu"]) if split else {}
+    pred = Predictor(cfg, model_path=path, device="cpu", **kw)
+    assert pred._embed is None
+    clips = [tone(150, 0.8, 1), tone(220, 1.1, 2), tone(300, 0.9, 3),
+             tone(180, 1.3, 4)]
+    with tracing.recording():
+        pred.predict_batch(clips, batch_size=2)
+    spans = tracing.spans()
+    by = _by_name(spans)
+    (call,) = by["vpr.predict"]
+    shares = 2 if split else 1
+    want = {"vpr.predict.stage": 2, "vpr.predict.copy_in": 2 * shares,
+            "vpr.predict.model": 2 * shares, "vpr.predict.copy_out": 2}
+    for name, n in want.items():
+        assert len(by[name]) == n, name
+        assert all(spans[k].parent == call for k in by[name]), name
+    kids = [n for _, n in sorted((s.start_ns, s.name) for s in spans
+                                 if s.parent == call)]
+    chunk = (["vpr.predict.stage"]
+             + ["vpr.predict.copy_in", "vpr.predict.model"] * shares
+             + ["vpr.predict.copy_out"])
+    assert kids == chunk * 2
 
 
 def test_the_loaders_load_and_wait_spans_share_batch_ids():
