@@ -22,7 +22,9 @@ An ablation gives garbage and only a time. Each variant is written to
 library of its own, and loaded in place of the kernel library (the
 wrapper ``models/fcm_kernel.fcm_fused`` runs it, its plan check
 included). Variants without ablations are held against
-``fcm_reference`` at b3 x 33, b2 x 1598 and b1 x 5 (chip_smoke.py's bars).
+``fcm_reference`` at b3 x 33, b2 x 1598 and b1 x 5 (the bars of
+``tests/test_torch_gpu.py``: cos > 0.9999, max |d| / scale < 5e-2), on
+the seeded weights of ``tests/torch_card.py``.
 Each is timed at b32 x 1598 (the 16 s bucket) and b256 x 298 (3 s) by CUDA
 events, two means of 20 calls in each of two rounds (the second in
 reverse order), with the ms of each launch (``fcm_stage_times``). One
@@ -133,10 +135,36 @@ def _use(fkm, so, launches, tts):
                              for ln, tt in zip(launches, tts))
 
 
+def card_line():
+    """The card's name and power limit (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """CUDA-event ms of one ``fn()``, a mean over ``iters`` calls after
+    ``warmup``."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def main(argv):
     import numpy as np
     import torch
-    import chip_smoke as cs
+    from torch_card import SEED, random_flax_variables
     from voiceprintrecognition_paddlepaddle_torch.models import \
         fcm_kernel as fkm
     from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
@@ -156,7 +184,7 @@ def main(argv):
     with ThreadPoolExecutor(len(parsed)) as ex:
         built = dict(zip(parsed, ex.map(
             lambda n: _build(n, variant_source(src, *parsed[n])), parsed)))
-    print(cs.card_line(), flush=True)
+    print(card_line(), flush=True)
     for name, (_, rc, log) in built.items():
         if rc:
             raise RuntimeError(f"{name} did not build:\n{log[-3000:]}")
@@ -168,10 +196,10 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     model = CAMPPlus(80, embd_dim=192)
     model.load_state_dict(jax_to_torch_state(
-        cs.random_flax_variables(model, cs.SEED)))
+        random_flax_variables(model, SEED)))
     model.cuda().eval().requires_grad_(False)
     packed = fkm.pack_fcm(model)
-    rng = np.random.RandomState(cs.SEED)
+    rng = np.random.RandomState(SEED)
     xs = {name: torch.from_numpy(rng.randn(b, t, 80).astype(np.float32)).cuda()
           for name, (b, t) in (("b32 x 1598", (32, 1598)),
                                ("b256 x 298", (256, 298)))}
@@ -201,12 +229,12 @@ def main(argv):
                 for k, x in xs.items():
                     res[name]["split"][k] = fkm.fcm_stage_times(packed, x, 10)
             for k, x in xs.items():
-                res[name]["ms"][k] += [cs.cuda_ms(
+                res[name]["ms"][k] += [cuda_ms(
                     lambda: fkm.fcm_fused(packed, x), 20, 3) for _ in range(2)]
     for name in names:
         print(json.dumps({"variant": name, **res[name]}), flush=True)
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
     main(sys.argv[1:])

@@ -22,7 +22,7 @@ from torch_jax_native import require_jax_native
 from voiceprintrecognition_paddlepaddle_torch.ops import augment as ta
 from voiceprintrecognition_paddlepaddle_tpu.ops import augment as ja
 
-from test_torch_helpers import write_wav
+from torch_card import write_wav
 
 
 def _close(ref, got):

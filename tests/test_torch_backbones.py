@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import (NARROW, cos_min, rel_err, synth_backbone,
-                                synth_flax)
+from test_torch_helpers import NARROW, rel_err, synth_backbone, synth_flax
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.models import layers as tlayers
 from voiceprintrecognition_paddlepaddle_torch.models import pooling as tpool
 from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
@@ -90,13 +90,13 @@ def test_converted_state_covers_every_tensor(name):
 
 
 @pytest.mark.parametrize("name", sorted(NARROW))
-def test_chip_smoke_weights_are_in_the_flax_layout(name):
-    """``chip_smoke.random_flax_variables`` (phase 9's weights) builds the
-    flax tree of the JAX model, leaf for leaf and shape for shape, and
-    converts back into the port's model strictly."""
+def test_torch_card_weights_are_in_the_flax_layout(name):
+    """``torch_card.random_flax_variables`` (the card tests' weights)
+    builds the flax tree of the JAX model, leaf for leaf and shape for
+    shape, and converts back into the port's model strictly."""
     import flax
 
-    from chip_smoke import random_flax_variables
+    from torch_card import random_flax_variables
     from voiceprintrecognition_paddlepaddle_torch.models import \
         MODELS as TORCH_MODELS
     from voiceprintrecognition_paddlepaddle_tpu.models import MODELS

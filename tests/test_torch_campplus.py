@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import FULL, SMALL, cos_min, rel_err, synth_campplus
+from test_torch_helpers import FULL, SMALL, rel_err, synth_campplus
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.models import build_model
 from voiceprintrecognition_paddlepaddle_torch.models.convert import \
     jax_to_torch_state

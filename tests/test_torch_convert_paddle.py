@@ -26,7 +26,7 @@ from flax import serialization
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
 from test_convert_paddle import (CONFIGS, SMALL, _load_cfg,
                                  _model_tree_shapes, _synth_paddle_state)
-from test_torch_helpers import cos_min
+from torch_card import cos_min
 from tools import convert_paddle_checkpoint as jconv
 from voiceprintrecognition_paddlepaddle_torch.models import \
     convert_paddle as tconv

@@ -21,7 +21,8 @@ from voiceprintrecognition_paddlepaddle_tpu.metric import metrics as jm
 from voiceprintrecognition_paddlepaddle_tpu.native import \
     load_batch_native as jax_load_batch_native
 
-from test_torch_helpers import speaker_corpus, write_wav
+from test_torch_helpers import speaker_corpus
+from torch_card import write_wav
 
 
 def _same(a, b):

@@ -31,7 +31,8 @@ from flax import serialization
 
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
 from test_torch_helpers import (FULL, calibrate_bn_stats, calibration_clips,
-                                cos_min, synth_campplus, tone)
+                                synth_campplus)
+from torch_card import cos_min, tone
 from voiceprintrecognition_paddlepaddle_torch.infer_utils import der as tder
 from voiceprintrecognition_paddlepaddle_torch.infer_utils.speaker_diarization \
     import SpeakerDiarization, SpectralCluster, kmeans

@@ -20,7 +20,7 @@ recipe of ``tests/test_torch_diarization_quality.py`` and carried to JAX
   ``output/speaker_diarization.png``;
 - ``utils.utils``: ``cal_accuracy_threshold``, ``cal_accuracy`` and
   ``cosin_metric`` equal JAX's on seeded inputs (exactly);
-- ``chip_smoke.pdparams_of``, which writes phase 13's trained CAM++ for
+- ``torch_card.pdparams_of``, which writes the card's trained CAM++ for
   ``eval_from_paddle``: the stock CAM++ converted back bit-equal by the
   port's and JAX's converters."""
 
@@ -39,7 +39,7 @@ from flax import serialization
 
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
 from test_predictor import _configs
-from test_torch_helpers import tone, write_wav
+from torch_card import tone, write_wav
 from tools import convert_paddle_checkpoint as jconv
 from voiceprintrecognition_paddlepaddle_torch import (eval_from_paddle,
                                                       infer_speaker_diarization)
@@ -315,12 +315,12 @@ def test_score_helpers_equal_jax(name):
         assert got == want and name in tutils.__all__
 
 
-def test_chip_smoke_pdparams_inverts_the_converter():
-    """``chip_smoke.pdparams_of`` (phase 13 writes its trained CAM++ as a
+def test_torch_card_pdparams_inverts_the_converter():
+    """``torch_card.pdparams_of`` (the card writes its trained CAM++ as a
     ``.pdparams`` with it): the stock CAM++ with seeded weights and BN
     statistics, written out and converted back by the port's and JAX's
     converters, bit-equal."""
-    from chip_smoke import CONFIG, pdparams_of, random_flax_variables
+    from torch_card import CONFIG, pdparams_of, random_flax_variables
     from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
         CAMPPlus
     from voiceprintrecognition_paddlepaddle_torch.models.convert_paddle \

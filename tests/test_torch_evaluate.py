@@ -16,7 +16,8 @@ import pytest
 import torch
 
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
-from test_torch_helpers import cos_min, speaker_corpus, train_configs
+from test_torch_helpers import speaker_corpus, train_configs
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.models.convert import \
     jax_to_torch_state
 from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer

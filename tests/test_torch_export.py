@@ -32,9 +32,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import (NARROW, SMALL, cos_min, rel_err,
-                                speaker_corpus, synth_backbone,
-                                synth_campplus, train_configs)
+from test_torch_helpers import (NARROW, SMALL, rel_err, speaker_corpus,
+                                synth_backbone, synth_campplus, train_configs)
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
 from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
 from voiceprintrecognition_paddlepaddle_tpu.ops.features import \

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fbank_steps, tone_then_silence
+from torch_card import fbank_steps, tone_then_silence
 from voiceprintrecognition_paddlepaddle_torch.ops import fbank_kernel
 from voiceprintrecognition_paddlepaddle_torch.ops import features as tfeat
 from voiceprintrecognition_paddlepaddle_torch.ops import kaldi as tkaldi
@@ -279,8 +279,8 @@ def test_fft_emulation_matches_jax(signal, n_mels, n_samples):
 
 @pytest.mark.parametrize("n_mels", [80, 40])
 def test_fp32_steps_compute_kaldi_fbank(n_mels):
-    """``fbank_steps`` in fp32, the composition ``chip_smoke.py`` times as
-    ``cufft_ms``, computes the same function as JAX ``kaldi.fbank``."""
+    """``fbank_steps`` in fp32, kaldi's steps as library calls with
+    cuFFT on the card, computes the same function as JAX ``kaldi.fbank``."""
     w = _waves(8, 2, 48000 + 123)
     got = fbank_steps(fbank_kernel, torch.from_numpy(w), n_mels,
                       dtype=torch.float32)

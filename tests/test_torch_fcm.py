@@ -3,10 +3,10 @@
 and against the flax ``FCM``, at full width. The lengths cover the
 single-pass kernel (298, 297: an odd length with a half-valid last time
 group, 17) and the chunked one (600, 601: ``t2p > 256``). The CUDA kernel
-itself is held against the plain version in ``test_torch_gpu.py`` and
-``chip_smoke.py``; here its plan (``fkm.FCM_LAUNCHES``: four launches,
-their items and each item's tiles with their halos) runs in plain PyTorch
-(``_emulate_plan``) against ``fcm_reference``.
+itself is held against the plain version in ``test_torch_gpu.py``; here
+its plan (``fkm.FCM_LAUNCHES``: four launches, their items and each item's
+tiles with their halos) runs in plain PyTorch (``_emulate_plan``) against
+``fcm_reference``.
 
 Bars (``tests/test_pallas_fcm.py:44``, ``:55-56``): bf16 packing
 cos > 0.9999 and max |d| < 5e-2 x scale; fp32 packing max |d| < 1e-4 x

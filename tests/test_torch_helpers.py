@@ -11,6 +11,7 @@ numpy arrays made from seeds and handed to both.
 import numpy as np
 
 from test_convert_paddle import _model_tree_shapes, _synth_paddle_state
+from torch_card import tone, write_wav
 from tools.convert_paddle_checkpoint import SPECS, convert_state
 
 FULL = dict(embd_dim=192)                                  # configs/cam++.yml
@@ -112,15 +113,6 @@ def synth_campplus(args, input_size=80, seed=0):
     return CAMPPlus(input_size=input_size, **args), variables, tmodel
 
 
-def tone(f0, seconds, seed, amp=0.3, sr=16000):
-    """A harmonic tone speaker with a little noise (``tests/test_predictor.py``)."""
-    rng = np.random.RandomState(seed)
-    t = np.arange(int(seconds * sr)) / sr
-    sig = sum(np.sin(2 * np.pi * f0 * h * t + rng.rand()) / h
-              for h in range(1, 5))
-    return (amp * (sig + 0.05 * rng.randn(len(t)))).astype(np.float32)
-
-
 def calibrate_bn_stats(variables, tmodel, waves):
     """Re-estimate every BN's statistics of the port model on ``waves``
     (one train-mode pass with cumulative averages) and write them into both
@@ -164,26 +156,9 @@ def calibration_clips():
                     for s in (0.05, 0.1, 0.2, 0.3)]
 
 
-def cos_min(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.min((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                                            * np.linalg.norm(b, axis=-1))))
-
-
 def rel_err(ref, got):
     ref, got = np.asarray(ref), np.asarray(got)
     return float(np.abs(ref - got).max() / (np.abs(ref).max() + 1e-9))
-
-
-def write_wav(path, samples, sr=16000):
-    import wave
-
-    with wave.open(str(path), "wb") as w:
-        w.setnchannels(1)
-        w.setsampwidth(2)
-        w.setframerate(sr)
-        w.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2")
-                      .tobytes())
 
 
 def speaker_corpus(root, n_speakers=4, n_utts=6, seconds=(1.2, 1.2), seed=0):

@@ -69,9 +69,16 @@ def test_importing_the_port_leaves_jax_out():
 
 
 def test_port_sources_never_import_jax():
+    """The port, and what runs beside it on the card's host: the card's
+    tests, their helpers and ``fcm_variants.py``."""
     sources = [os.path.join(d, n) for d, _, files in os.walk(PKG)
                for n in files if n.endswith(".py")]
     assert len(sources) > 20
+    card = [os.path.join(ROOT, "tests", "torch_card.py"),
+            os.path.join(ROOT, "fcm_variants.py")]
+    card += glob.glob(os.path.join(ROOT, "tests", "test_torch_gpu*.py"))
+    assert all(os.path.exists(p) for p in card) and len(card) >= 3
+    sources += card
     for path in sources:
         with open(path, encoding="utf-8") as f:
             text = f.read()
@@ -198,13 +205,13 @@ def test_kernel_library_builds_once_for_concurrent_callers(monkeypatch,
     assert os.path.exists(got[0].path) and not got[0].cached
 
 
-def test_chip_smoke_config_is_cam_yml_and_its_weights_load():
-    """chip_smoke.py keeps configs/cam++.yml as a dict (the GPU host has
-    no PyYAML) and builds its weights in the flax layout."""
+def test_torch_card_config_is_cam_yml_and_its_weights_load():
+    """``tests/torch_card.py`` keeps configs/cam++.yml as a dict (the GPU
+    host has no PyYAML) and builds its weights in the flax layout."""
     import torch
     import yaml
 
-    import chip_smoke
+    import torch_card
     from voiceprintrecognition_paddlepaddle_torch.models.campplus import \
         CAMPPlus
     from voiceprintrecognition_paddlepaddle_torch.models.convert import \
@@ -213,31 +220,31 @@ def test_chip_smoke_config_is_cam_yml_and_its_weights_load():
     with open(os.path.join(ROOT, "configs", "cam++.yml"), encoding="utf-8") as f:
         cfg = yaml.safe_load(f)
     for key in ("dataset_conf", "preprocess_conf", "model_conf"):
-        assert chip_smoke.CONFIG[key] == cfg[key], key
+        assert torch_card.CONFIG[key] == cfg[key], key
     model = CAMPPlus(80, embd_dim=192)
-    state = jax_to_torch_state(chip_smoke.random_flax_variables(model, 0))
+    state = jax_to_torch_state(torch_card.random_flax_variables(model, 0))
     model.load_state_dict(state)
     bn = model.TDNNLayer_0._NonLinear_0.BatchNorm_0
     assert not torch.allclose(bn.running_var, torch.ones_like(bn.running_var))
 
 
-def test_chip_smoke_backbones_are_the_configs():
-    """chip_smoke.py phase 9 keeps the other six configs' ``model_conf`` as
+def test_torch_card_backbones_are_the_configs():
+    """``tests/torch_card.py`` keeps the other six configs' ``model_conf`` as
     dicts; they are the YAML files', and each builds its backbone."""
     import yaml
 
-    import chip_smoke
+    import torch_card
     from voiceprintrecognition_paddlepaddle_torch.models import build_model
     from voiceprintrecognition_paddlepaddle_torch.utils.utils import \
         dict_to_object
 
-    for key, conf in chip_smoke.BACKBONE_CONFS.items():
+    for key, conf in torch_card.BACKBONE_CONFS.items():
         with open(os.path.join(ROOT, "configs", f"{key}.yml"),
                   encoding="utf-8") as f:
             cfg = yaml.safe_load(f)
         assert conf == cfg["model_conf"], key
         for k in ("dataset_conf", "preprocess_conf"):
-            assert chip_smoke.CONFIG[k] == cfg[k], (key, k)
-        model = build_model(80, dict_to_object(dict(chip_smoke.CONFIG,
+            assert torch_card.CONFIG[k] == cfg[k], (key, k)
+        model = build_model(80, dict_to_object(dict(torch_card.CONFIG,
                                                     model_conf=conf)))
         assert type(model).__name__ == conf["model"]

@@ -1,7 +1,10 @@
-"""Rank programs of the port's data-parallel CPU tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_train.py``).
+"""Rank programs of the port's data-parallel tests
+(``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_train.py``,
+and on the card ``tests/test_torch_gpu.py`` and
+``tests/test_torch_gpu_workflows.py``).
 
-Each test starts two ranks through the port's launcher::
+Each test starts its ranks (two, unless it asks for another count)
+through the port's launcher::
 
     python -m voiceprintrecognition_paddlepaddle_torch.launch_multihost \\
         --nproc 2 -- python tests/test_torch_parallel_ranks.py <dir> <prog>...
@@ -21,6 +24,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -177,25 +181,101 @@ def train(inp, rank, world):
             "state": tr2.model.state_dict()}
 
 
-def launch_ranks(directory, programs, inputs, timeout=240):
-    """Run ``programs`` on two ranks through the port's launcher with
-    ``inputs``; returns each rank's outputs, rank 0 first."""
+def _card_steps(tr, batches, rank, world):
+    """``tr.train_step`` on this rank's rows of each global batch of
+    waveforms: the losses and the kernels' launches over the steps."""
+    from torch_card import launches, launches_since
+    tr.model.train()
+    tr.classifier.train()
+    before, losses = launches(), []
+    for batch in batches:
+        x = [torch.from_numpy(_half(a, rank, world)).to(tr.device)
+             for a in batch]
+        losses.append(tr.train_step("waveforms", *x)[0])
+    return [float(x) for x in losses], launches_since(before)
+
+
+def _card_trainer(cfg):
+    from voiceprintrecognition_paddlepaddle_torch.trainer import Trainer
+    tr = Trainer(cfg, device="cuda")
+    tr._setup_dataloader(is_train=True)
+    tr._setup_model(80, is_train=True)
+    return tr
+
+
+def _state(tr):
+    return {f"{part}.{k}": v.detach().cpu() for part in ("model", "classifier")
+            for k, v in getattr(tr, part).state_dict().items()}
+
+
+def ddp_steps(inp, rank, world):
+    """On the card, cuDNN's convs in true fp32: DDP steps from the seeded
+    weights on this rank's share of each global batch, rank 0's weights
+    after them and an orbax (DCP) checkpoint; the same steps with no
+    gradient exchange (each under DDP's ``no_sync``), the fault the held
+    steps must tell apart; ``evaluate()`` of the given weights over this
+    rank's shard. The launches of the steps and of the evaluation."""
+    from torch_card import launches, launches_since
+    from voiceprintrecognition_paddlepaddle_torch.utils.checkpoint import \
+        save_checkpoint
+    d = inp["ddp"]
+    torch.backends.cudnn.allow_tf32 = False
+    tr = _card_trainer(d["cfg"])
+    losses, steps = _card_steps(tr, d["batches"], rank, world)
+    out = {"device": str(tr.device), "backend": dist.get_backend(),
+           "ddp": type(tr._net).__name__, "losses": losses,
+           "train_launches": steps}
+    if rank == 0:
+        out["state"] = _state(tr)
+        save_checkpoint(tr.configs, tr.train_state(), d["ckpt"], 1)
+    dist.barrier()
+    fault = _card_trainer(d["cfg"])
+    with fault._train_net().no_sync():
+        out["nosync_losses"] = _card_steps(fault, d["batches"], rank,
+                                           world)[0]
+    if rank == 0:
+        out["nosync_state"] = _state(fault)
+    del fault
+    tr.model.load_state_dict(d["eval_model"])
+    before = launches()
+    out["eval"] = dict(zip(("eer", "min_dcf", "threshold"), tr.evaluate()))
+    out["eval_launches"] = launches_since(before)
+    out["eval_embeddings"] = {k: (v[0].cpu().numpy(), v[1])
+                              for k, v in tr.eval_embeddings.items()}
+    return out
+
+
+def nccl_step(inp, rank, world):
+    """One DDP step on the card on the first half of the first batch."""
+    d = inp["ddp"]
+    tr = _card_trainer(d["cfg"])
+    half = [a[:a.shape[0] // 2] for a in d["batches"][0]]
+    losses, steps = _card_steps(tr, [half], rank, world)
+    return {"backend": dist.get_backend(), "world": tr.world,
+            "ddp": type(tr._net).__name__, "loss": losses[0],
+            "launches": steps}
+
+
+def launch_ranks(directory, programs, inputs, timeout=240, nproc=2):
+    """Run ``programs`` on ``nproc`` ranks through the port's launcher
+    with ``inputs``; returns each rank's outputs, rank 0 first."""
     torch.save(inputs, os.path.join(directory, "inputs.pt"))
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     run = subprocess.run(
         [sys.executable, "-m",
          "voiceprintrecognition_paddlepaddle_torch.launch_multihost",
-         "--nproc", "2", "--timeout", str(timeout), "--", sys.executable,
-         os.path.abspath(__file__), str(directory), *programs],
+         "--nproc", str(nproc), "--timeout", str(timeout), "--",
+         sys.executable, os.path.abspath(__file__), str(directory),
+         *programs],
         cwd=ROOT, env=env, capture_output=True, text=True,
         timeout=timeout + 30)
     assert run.returncode == 0, run.stderr[-6000:]
     return [torch.load(os.path.join(directory, f"rank{r}.pt"),
-                       weights_only=False) for r in range(2)]
+                       weights_only=False) for r in range(nproc)]
 
 
 PROGRAMS = {f.__name__: f for f in (ragged, batchnorm, triplet, step,
-                                    evaluate, train)}
+                                    evaluate, train, ddp_steps, nccl_step)}
 
 
 def main(directory, *programs):

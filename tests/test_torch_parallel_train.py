@@ -30,10 +30,10 @@ import torch
 from flax import serialization
 
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
-from test_torch_helpers import (FULL, NARROW, cos_min, synth_backbone,
-                                synth_campplus, speaker_corpus, tone,
-                                train_configs)
+from test_torch_helpers import (FULL, NARROW, synth_backbone, synth_campplus,
+                                speaker_corpus, train_configs)
 from test_torch_parallel_ranks import launch_ranks
+from torch_card import cos_min, tone
 from voiceprintrecognition_paddlepaddle_torch import launch_multihost
 from voiceprintrecognition_paddlepaddle_torch import predict as tpredict
 from voiceprintrecognition_paddlepaddle_torch.models.convert import \

@@ -29,8 +29,9 @@ import yaml
 from flax import serialization
 
 import torch_jax_native  # noqa: F401 (JAX's native library, locked)
-from test_torch_helpers import (FULL, NARROW, SMALL, cos_min, synth_backbone,
+from test_torch_helpers import (FULL, NARROW, SMALL, synth_backbone,
                                 synth_campplus)
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch import (
     infer_contrast, infer_speaker_diarization, serve)
 from voiceprintrecognition_paddlepaddle_torch import predict as tpredict

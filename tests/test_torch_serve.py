@@ -26,7 +26,8 @@ import pytest
 import torch
 import yaml
 
-from test_torch_helpers import FULL, SMALL, cos_min, synth_campplus, tone
+from test_torch_helpers import FULL, SMALL, synth_campplus
+from torch_card import cos_min, tone
 from voiceprintrecognition_paddlepaddle_torch import (infer_contrast,
                                                       infer_speaker_diarization,
                                                       serve)

@@ -17,7 +17,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from test_torch_helpers import speaker_corpus, tone, train_configs
+from test_torch_helpers import speaker_corpus, train_configs
+from torch_card import tone
 from voiceprintrecognition_paddlepaddle_torch.data_utils.loader import \
     DataLoader
 from voiceprintrecognition_paddlepaddle_torch.infer_utils.micro_batcher \

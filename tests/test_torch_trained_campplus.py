@@ -1,10 +1,11 @@
 """PyTorch port, the kernel path's plain versions against JAX's Pallas path
-(interpret mode) on a *trained* stock CAM++ (192-d): the model of
-``chip_smoke.py`` phase 13, trained here on the CPU by the port's
-``Trainer`` with the JAX diarization bar's recipe (4 tone speakers x 4
-clips of 1.2 s, 40 epochs, learning rate 0.05, ``dataset.seed`` 7).
+(interpret mode) on a *trained* stock CAM++ (192-d): the model that
+``tests/test_torch_gpu_workflows.py`` trains on the card, trained here on
+the CPU by the port's ``Trainer`` with the JAX diarization bar's recipe (4
+tone speakers x 4 clips of 1.2 s, 40 epochs, learning rate 0.05,
+``dataset.seed`` 7).
 
-Four of the diarizer's 1.5 s chunks of the phase's conversation (two end
+Four of the diarizer's 1.5 s chunks of the card test's conversation (two end
 where a turn ends, two lie inside a turn) are embedded at exact length and
 padded to their 2 s bucket (ratio 0.75), as ``predict_batch`` pads them:
 
@@ -13,7 +14,8 @@ padded to their 2 s bucket (ratio 0.75), as ``predict_batch`` pads them:
   ``make_campplus_masked_embed_fn(interpret=True)`` on the same weights,
   padded and at exact length: cos > 0.9999 (``tests/test_torch_trunk.py``);
 - the kernel path's bf16 design at exact length against the fp32 model:
-  cos > 0.999 (``chip_smoke.py`` phase 8's bar);
+  cos > 0.999 (the bar of ``tests/test_torch_gpu.py``'s diarization
+  chunks);
 - the bucket padding: each side's cosine of a padded chunk to its
   exact-length embedding, within 1e-3 of the other side's. The padding
   moves the trained model's embedding of a chunk that ends at a turn's end

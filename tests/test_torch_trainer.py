@@ -17,7 +17,8 @@ import pytest
 import torch
 import yaml
 
-from test_torch_helpers import NARROW, cos_min, speaker_corpus, train_configs
+from test_torch_helpers import NARROW, speaker_corpus, train_configs
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.optimizer import \
     AdamLowPrecisionMoment
 from voiceprintrecognition_paddlepaddle_torch.predict import Predictor
@@ -267,28 +268,28 @@ def test_every_backbone_takes_a_train_step(lists, name):
                zip(params, tr.model.parameters()))
 
 
-def test_chip_smoke_config_is_the_whole_cam_yml(tmp_path):
-    """chip_smoke.py phase 10 trains ``CONFIG``: every key of
+def test_torch_card_config_is_the_whole_cam_yml(tmp_path):
+    """The card's training tests train ``CONFIG``: every key of
     configs/cam++.yml, and ``train_config`` changes the list paths (and
     what it is asked to) and nothing else."""
-    import chip_smoke
+    import torch_card
 
     with open(os.path.join(ROOT, "configs", "cam++.yml"),
               encoding="utf-8") as f:
-        assert chip_smoke.CONFIG == yaml.safe_load(f)
-    cfg, changes = chip_smoke.train_config(
+        assert torch_card.CONFIG == yaml.safe_load(f)
+    cfg, changes = torch_card.train_config(
         ["a.txt", "b.txt", "c.txt"], **{"train_conf.enable_amp": True})
     assert changes == {"dataset_conf.train_list": "a.txt",
                        "dataset_conf.enroll_list": "b.txt",
                        "dataset_conf.trials_list": "c.txt",
                        "train_conf.enable_amp": True}
     cfg["dataset_conf"].update(train_list="dataset/train_list.txt",
-                               enroll_list=chip_smoke.CONFIG["dataset_conf"]
+                               enroll_list=torch_card.CONFIG["dataset_conf"]
                                ["enroll_list"],
-                               trials_list=chip_smoke.CONFIG["dataset_conf"]
+                               trials_list=torch_card.CONFIG["dataset_conf"]
                                ["trials_list"])
     cfg["train_conf"]["enable_amp"] = False
-    assert cfg == chip_smoke.CONFIG
+    assert cfg == torch_card.CONFIG
 
 
 LOSS_ARGS = {"AAMLoss": {"margin": 0.2, "scale": 32},

@@ -27,7 +27,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from test_torch_helpers import FULL, cos_min, rel_err, synth_campplus
+from test_torch_helpers import FULL, rel_err, synth_campplus
+from torch_card import cos_min
 from voiceprintrecognition_paddlepaddle_torch.models import trunk_kernel as tk
 from voiceprintrecognition_paddlepaddle_tpu.models import pallas_campplus as pc
 from voiceprintrecognition_paddlepaddle_tpu.models.campplus import FCM
@@ -377,7 +378,8 @@ def test_cpu_tensor_runs_plain_version_without_launch(setup):
 
 
 # resident clusters of an NVIDIA H100 80GB HBM3 for every split the rule
-# may take (chip_smoke.py's resident_table, cudaOccupancyMaxActiveClusters):
+# may take (cudaOccupancyMaxActiveClusters; ``tests/test_torch_gpu.py``
+# holds each independent of the valid count):
 # every block of the kernel holds an SM alone, at every R up to 256, so
 # this is cs -> clusters. A cluster sits inside one GPC, so 30 clusters of
 # 4 fit, not 33.

@@ -35,9 +35,8 @@ at every length it supports. On an NVIDIA H100 (700 W) it beat the
 model's cuDNN convs 9.6x to 19.6x at b1, b64 and b256 of each bucket from
 1 s to 8 s, and 12.4x to 13.0x at b256 x 298 and b32 x 1598 frames (0.06
 to 0.12 against 0.90 to 1.53 ms at b1 x 98, 4.0 against 52.7 to 53.4 ms
-at b256 x 798; three runs of the crossover in ``chip_smoke.py`` phase 7,
-which fails if cuDNN wins at any of them). The JAX package's 1000-frame
-threshold is a TPU's.
+at b256 x 798; three runs of the crossover, ``PERF.md`` section 6). The
+JAX package's 1000-frame threshold is a TPU's.
 """
 
 import ctypes

@@ -274,9 +274,10 @@ def rows_per_block(t16, cs):
 def block_cost(rows):
     """A block's time in units of one 64-row tile's products: its tiles,
     plus two for each row pass (a pass streams every weight slice again and
-    has its own serial work). Fitted to the kernel's cluster sweep on an
-    NVIDIA H100 (``chip_smoke.cluster_sweep``): a block of one tile takes
-    about 1.3 ms, of two 1.75, of three 2.2, of four (two passes) 2.7-3.1."""
+    has its own serial work). Fitted to a sweep of every cluster size on
+    an NVIDIA H100 (``PERF.md`` section 6, the kernel table's records): a
+    block of one tile takes about 1.3 ms, of two 1.75, of three 2.2, of
+    four (two passes) 2.7-3.1."""
     tiles = -(-rows // TILE_ROWS)
     return tiles + 2 * -(-tiles // PASS_TILES)
 
