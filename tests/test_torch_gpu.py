@@ -798,6 +798,114 @@ def test_plain_path_syncs_only_in_its_copy_out(predictors, key):
     assert len(syncs) == 2 * (2 if key.endswith("split") else 1), syncs
 
 
+def _ragged_4s_clips(seed):
+    """Clips of about ``RAGGED_4S``'s valid trunk rows, padded to the 4 s
+    bucket: every ratio under 1."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(max(400, 320 * v - rng.randint(160))) * 0.1)
+            .astype(np.float32) for v in RAGGED_4S]
+
+
+def _host_to_device_copies(fn):
+    """The names of the device's copies from the host while ``fn()`` runs,
+    under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.name.startswith("Memcpy HtoD")]
+
+
+def test_kernel_path_syncs_only_in_its_copy_out(cuda, predictors):
+    """The stock CAM++ on the kernel path, a ragged chunk: under
+    ``set_sync_debug_mode("error")`` its staged copies and the embed
+    function (the masked CMN's ratios, the trunk's valid counts and
+    launch order) make no synchronizing call, and so does a call without
+    ratios; the ratios take two copies from pinned memory, ``None`` none;
+    ``pinned_calls`` counts the ragged calls alone. A whole
+    ``predict_batch`` of two chunks warns of two syncs, each chunk's
+    ``.cpu()``."""
+    import warnings
+
+    pred = predictors["campplus"]
+    embed = pred._embed
+    clips = _ragged_4s_clips(43)
+    for batch_size in (5, len(clips)):             # every shape warmed
+        pred.predict_batch(clips, batch_size=batch_size)
+    waves, ratios = pred._stage(clips, len(clips))
+    assert ratios.numpy().max() < 1
+    waves_t = waves.to(cuda)
+    calls, pinned = embed.calls, embed.pinned_calls
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emb = pred._embed_on(0, waves, ratios)
+        exact = embed(waves_t, None)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert emb.is_cuda and exact.is_cuda
+    assert (embed.calls - calls, embed.pinned_calls - pinned) == (2, 1)
+    names = _host_to_device_copies(lambda: embed(waves_t, ratios.numpy()))
+    assert names == ["Memcpy HtoD (Pinned -> Device)"] * 2, names
+    assert _host_to_device_copies(lambda: embed(waves_t, None)) == []
+    assert (embed.calls - calls, embed.pinned_calls - pinned) == (4, 2)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pred.predict_batch(clips, batch_size=5)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in seen
+             if "synchroniz" in str(w.message)]
+    assert len(syncs) == 2, syncs
+
+
+def test_kernel_path_results_survive_dispatch_ahead(cuda, predictors):
+    """Eight different ragged batches of 64 through the embed function back
+    to back, no sync between them, each call's numpy ratios overwritten
+    as soon as it returns: every output is bit for bit the same batch's
+    embedded alone between two syncs, so no pinned block was reused under
+    a pending copy and nothing read the caller's array late; and the
+    first is bit for bit the blocking route's (the masked CMN's ratios
+    copied from numpy by ``torch.as_tensor``)."""
+    pred = predictors["campplus"]
+    embed = pred._embed
+    rng = np.random.RandomState(44)
+    batches = []
+    for _ in range(8):
+        lens = rng.randint(400, 64000, size=64)
+        waves = np.zeros((64, 64000), np.float32)
+        for j, n in enumerate(lens):
+            waves[j, :n] = rng.randn(n) * 0.1
+        batches.append((torch.from_numpy(waves).to(cuda),
+                        (lens / 64000).astype(np.float32)))
+    alone = []
+    for w, r in batches:
+        torch.cuda.synchronize()
+        alone.append(embed(w, r.copy()))
+        torch.cuda.synchronize()
+    calls, pinned = embed.calls, embed.pinned_calls
+    ahead = []
+    for w, r in batches:
+        mine = r.copy()
+        ahead.append(embed(w, mine))
+        mine[:] = mine[::-1].copy()
+    torch.cuda.synchronize()
+    assert (embed.calls - calls, embed.pinned_calls - pinned) == (8, 8)
+    for i, (got, want) in enumerate(zip(ahead, alone)):
+        assert torch.isfinite(want).all() and torch.equal(got, want), i
+    w, r = batches[0]
+    with torch.no_grad():
+        feats = embed.featurizer(w, input_lens_ratio=r)
+        t_valid, _ = tk.trunk_geometry(feats.shape[1])
+        blocking = tk.campplus_embed_fast(
+            embed.model, embed.packed, embed.packed_fcm, feats,
+            tk.tvalids_from_ratios(r, t_valid))
+    assert torch.equal(blocking, alone[0])
+
+
 @pytest.mark.parametrize("key", ["campplus", "eres2net", "ecapa_tdnn"])
 def test_four_threads_get_the_serial_embeddings(predictors, key):
     """Four threads call ``predict_batch`` at once on one Predictor, five

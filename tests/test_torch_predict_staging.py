@@ -191,3 +191,24 @@ def test_many_threads_count_every_chunk_and_get_serial_answers(narrow_paths):
     for want, got in zip(serial, results):
         assert len(got) == 3 and all(np.array_equal(g, want) for g in got)
     assert (pred.chunks - base, pred.pinned_chunks) == (8 * 3 * 2, 0)
+
+
+def test_embed_fn_counts_its_calls_and_pins_nothing_on_the_cpu(tmp_path):
+    """The stock CAM++ takes the kernel path's embed function, which on
+    CPU tensors runs its kernels' plain versions: every call counts in
+    ``calls``, none in ``pinned_calls`` (nothing goes to a card), and
+    numpy ratios and a CPU tensor of them give the same embeddings."""
+    cfg = load_yaml(os.path.join(ROOT, "configs", "cam++.yml"))
+    torch.manual_seed(0)
+    path = str(tmp_path / "model.pt")
+    torch.save(build_model(80, dict_to_object(cfg)).state_dict(), path)
+    pred = Predictor(cfg, model_path=path, device="cpu")
+    embed = pred._embed
+    assert (embed.calls, embed.pinned_calls) == (0, 0)
+    waves, ratios = pred._stage(clips_of((16000, 9000), 8), 2)
+    from_numpy = embed(waves, ratios.numpy())
+    assert torch.equal(embed(waves, ratios), from_numpy)
+    assert embed(waves[:1], None).shape == (1, 192)
+    assert (embed.calls, embed.pinned_calls) == (3, 0)
+    pred.predict_batch(clips_of((16000, 9000, 12000), 9), batch_size=2)
+    assert (embed.calls, embed.pinned_calls) == (5, 0)

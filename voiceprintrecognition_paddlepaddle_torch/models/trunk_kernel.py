@@ -19,7 +19,9 @@ unbiased std over each utterance's valid frames.
 - ``campplus_embed_fast`` runs FCM -> trunk -> DenseBN head, the FCM
   through the FCM kernel (``fcm_kernel.fcm_fused``) at every length.
   ``make_campplus_masked_embed_fn`` wraps featurize + embed for padded
-  batches. Both record the spans ``vpr.embed`` (the call) and
+  batches (``MaskedEmbedFn``: on the card the per-utterance values go
+  from pinned memory without blocking, so the host never waits for the
+  card). Both record the spans ``vpr.embed`` (the call) and
   ``vpr.embed.{featurize,fcm,trunk,head}`` while tracing is on
   (``utils.tracing``).
 
@@ -46,6 +48,7 @@ runs every row, bit for bit.
 """
 
 import ctypes
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -62,6 +65,7 @@ __all__ = ["trunk_plan", "pack_trunk", "trunk_weights", "lin1_offsets",
            "trunk_tiles", "launch_order",
            "trunk_stats_reference", "trunk_stats", "trunk_phase_times",
            "campplus_embed_fast", "make_campplus_masked_embed_fn",
+           "MaskedEmbedFn",
            "MAX_T_RAW", "SMEM_MAX_T16", "CLUSTER_SIZES", "TRUNK_PHASES"]
 
 SEG_LEN = 100           # CAM segment pooling window
@@ -514,7 +518,9 @@ def trunk_stats(packed, fcm_out, tvalids=None):
     A CPU tensor runs ``trunk_stats_reference``. A CUDA tensor launches
     the CUDA kernel (bf16 in, fp32 stats out) over clusters of
     ``default_split`` blocks per utterance, the utterances in
-    ``launch_order``; it adds one to ``trunk_stats.launches`` and to
+    ``launch_order``, which goes to the card with the valid counts in one
+    copy that does not block the host (``_to_card``); it adds one to
+    ``trunk_stats.launches`` and to
     ``trunk_stats.cluster_launches[cs]``, and the launch's ``trunk_tiles``
     (summed on the host) to ``trunk_stats.tiles`` and
     ``trunk_stats.tiles_run``."""
@@ -589,9 +595,9 @@ def _launch(packed, fcm_out, tvalids, split, phase=None):
     if tvalids is None:
         tv, order = torch.full((b,), t_valid, dtype=torch.int32, device=dev), None
     else:
-        # the valid counts and the launch order in one copy
-        both = torch.from_numpy(np.concatenate(
-            [tv_host, launch_order(tiles_run).astype(np.int32)])).to(dev)
+        # the valid counts and the launch order in one copy, not blocking
+        both = _to_card(np.concatenate(
+            [tv_host, launch_order(tiles_run).astype(np.int32)]), dev)
         tv, order = both[:b], both[b:].data_ptr()
     out = torch.empty((b, 2 * 512), dtype=torch.float32, device=dev)
     ws = torch.empty((2, b, t16, WIDE), dtype=_BF16, device=dev)
@@ -643,21 +649,56 @@ def campplus_embed_fast(model, packed, packed_fcm, feats, tvalids=None):
 
 
 def make_campplus_masked_embed_fn(model, featurizer):
-    """Pack the trunk and the FCM once and return ``call(waves (B, L)
-    tensor, ratios (B,) or None) -> embeddings (B, embd_dim)``.
+    """Pack the trunk and the FCM once and return the kernel path's embed
+    function, a ``MaskedEmbedFn``."""
+    return MaskedEmbedFn(model, featurizer)
 
-    With ratios the features take the masked CMN and the trunk the
-    per-utterance valid counts; with ``None`` every frame is valid."""
-    packed = pack_trunk(model)
-    packed_fcm = pack_fcm(model)
 
-    def call(waves, ratios=None):
+class MaskedEmbedFn:
+    """``call(waves (B, L) tensor, ratios (B,) or None) -> embeddings (B,
+    embd_dim)``: featurize, then ``campplus_embed_fast``.
+
+    With ratios (numpy or a CPU tensor) the features take the masked CMN
+    and the trunk the per-utterance valid counts, which the host computes
+    from the same ratios; with ``None`` every frame is valid and nothing
+    is copied. On a CUDA tensor the ratios, and in the trunk the valid
+    counts with the launch order, reach the card from pinned memory
+    without blocking (``_to_card``), so the batches dispatched ahead keep
+    the card busy; nothing is read back.
+
+    Counters: ``calls``; ``pinned_calls``, the calls whose per-utterance
+    values went to the card that way."""
+
+    def __init__(self, model, featurizer):
+        self.model, self.featurizer = model, featurizer
+        self.packed = pack_trunk(model)
+        self.packed_fcm = pack_fcm(model)
+        self.calls = 0
+        self.pinned_calls = 0
+        self._count_lock = threading.Lock()
+
+    def __call__(self, waves, ratios=None):
         with tracing.span("vpr.embed"):
+            pinned = ratios is not None and waves.device.type == "cuda"
+            if ratios is not None:
+                # float32, and writable for torch.from_numpy
+                ratios = np.array(ratios, np.float32)
             with tracing.span("vpr.embed.featurize"):
-                feats = featurizer(waves, input_lens_ratio=ratios)
+                feats = self.featurizer(waves, input_lens_ratio=(
+                    _to_card(ratios, waves.device) if pinned else ratios))
             t_valid, _ = trunk_geometry(feats.shape[1])
             tvalids = (None if ratios is None
                        else tvalids_from_ratios(ratios, t_valid))
-            return campplus_embed_fast(model, packed, packed_fcm, feats, tvalids)
+            with self._count_lock:
+                self.calls += 1
+                self.pinned_calls += pinned
+            return campplus_embed_fast(self.model, self.packed,
+                                       self.packed_fcm, feats, tvalids)
 
-    return call
+
+def _to_card(values, device):
+    """The host array ``values`` on the CUDA ``device``, copied without
+    blocking from pinned memory of PyTorch's caching host allocator,
+    which keeps the block from reuse until the copy has run: calls in
+    flight never share one."""
+    return torch.from_numpy(values).pin_memory().to(device, non_blocking=True)

@@ -343,8 +343,9 @@ class Predictor:
         need no lock; on the CPU into ordinary numpy memory. Each row gets
         its clip and a zeroed tail, rows past the chunk are zeroed with
         ratio 1. The waves, and on the plain path the ratios, go to the
-        device without blocking the host; the plain path's one host sync a
-        chunk is its ``.cpu()``. The pinned memory held is the next power
+        device without blocking the host (the kernel path's embed function
+        sends its per-utterance values the same way); a chunk's one host
+        sync is its ``.cpu()``. The pinned memory held is the next power
         of two above a chunk's bytes, per bucket size and per call in
         flight: 32 MiB for 64 clips at the 8 s bucket.
 
