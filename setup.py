@@ -26,7 +26,8 @@ setup(
     package_data={
         "voiceprintrecognition_paddlepaddle_tpu.native": ["*.cpp"],
         # the PyTorch port's CUDA sources, built by nvcc at first use
-        "voiceprintrecognition_paddlepaddle_torch": ["csrc/*.cu"],
+        # and the configs of its own backbones
+        "voiceprintrecognition_paddlepaddle_torch": ["csrc/*.cu", "configs/*.yml"],
         # and its C++ audio I/O source, built by g++ at first use
         "voiceprintrecognition_paddlepaddle_torch.native": ["*.cpp"],
     },

@@ -99,7 +99,10 @@ def test_build_model_serves_campplus_only():
     """``build_model`` raised for every backbone but CAM++ while the port
     had CAM++ only. It now builds the backbone each config in
     ``configs/`` names, with the JAX package's arguments (YAML lists as
-    tuples), and raises ``ValueError`` for an unknown name, as JAX does."""
+    tuples), and raises ``ValueError`` for an unknown name, as JAX does.
+    Its backbones are the JAX package's and the port's own, which the
+    JAX package lacks: MFA-Conformer, whose config sits in the port's
+    ``configs/`` (``mfa_conformer.yml``)."""
     import glob
     import os
 
@@ -109,14 +112,18 @@ def test_build_model_serves_campplus_only():
     from voiceprintrecognition_paddlepaddle_tpu.models import \
         MODELS as JAX_MODELS
 
-    assert set(MODELS) == set(JAX_MODELS)
+    port_only = {"MFAConformer"}
+    assert not port_only & set(JAX_MODELS)
+    assert set(MODELS) == set(JAX_MODELS) | port_only
     cfg = dict_to_object({"model_conf": {"model": "CAMPPlus",
                                          "model_args": {"embd_dim": 192}}})
     m = build_model(80, cfg)
     assert m.embd_dim == 192 and m.init_channels == 128
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     built = set()
-    for path in glob.glob(os.path.join(root, "configs", "*.yml")):
+    port = os.path.join(root, "voiceprintrecognition_paddlepaddle_torch")
+    for path in (glob.glob(os.path.join(root, "configs", "*.yml"))
+                 + glob.glob(os.path.join(port, "configs", "*.yml"))):
         with open(path, encoding="utf-8") as f:
             conf = yaml.safe_load(f)
         if "model_conf" not in conf:

@@ -1,6 +1,7 @@
 """PyTorch port, the YAML reader (``utils/config.py``) that lets every
 entry point start from a config path without PyYAML: equal to
-``yaml.safe_load`` on each file in ``configs/`` and on what
+``yaml.safe_load`` on each file in ``configs/`` and in the port's own
+``configs/`` (its backbones' YAMLs), and on what
 ``yaml.safe_dump`` writes of them in block style (the port's tests
 write their configs so), the scalar forms of YAML 1.1 that it takes
 resolved as PyYAML resolves them, a ``ValueError`` naming the line for
@@ -22,13 +23,16 @@ from voiceprintrecognition_paddlepaddle_torch.utils.config import (
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
+PORT_CONFIGS = sorted(glob.glob(os.path.join(
+    ROOT, "voiceprintrecognition_paddlepaddle_torch", "configs", "*.yml")))
 
 
 def test_every_config_file_is_covered():
     assert len(CONFIGS) == 8
+    assert PORT_CONFIGS
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+@pytest.mark.parametrize("path", CONFIGS + PORT_CONFIGS, ids=os.path.basename)
 def test_reader_equals_safe_load(path):
     with open(path, encoding="utf-8") as f:
         text = f.read()

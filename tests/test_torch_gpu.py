@@ -988,6 +988,114 @@ def test_backbone_serves_on_cuda(cuda, key, tmp_path):
     assert cos_min(got, want) >= 0.999
 
 
+def test_mfa_conformer_on_cuda_holds_the_cells_limit(cuda, tmp_path,
+                                                     monkeypatch):
+    """MFA-Conformer at its published widths, b4 x 16 s ragged clips
+    through ``Predictor(device="cuda").predict_batch``: every embedding
+    within the ``mfa_conformer.predict_16s`` cell's ``embed_rel_err`` limit
+    of the plain reference (fp32, materialised scores); the profiler shows
+    the fused attention kernel the ``attn_roofline.predict`` reader
+    names, six launches a call (one a block); and no attention call holds
+    a (B, h, T', T') score tensor: the device memory that each call of
+    ``scaled_dot_product_attention`` adds is under a quarter of one."""
+    from benchmark import core, traffic_gen
+    from benchmark.entries import common
+    from benchmark.weights import model_state
+
+    config = core.load_json(os.path.join(ROOT, "benchmark", "configs",
+                                         "mfa_conformer.json"))
+    padded = 256000
+    lens = np.array([256000, 201000, 150000, 136000])
+    state = model_state(config, SEED + 25, cuda)
+    waves = traffic_gen.waves(lens, padded, SEED + 25, cuda)
+    ratios = (lens / padded).astype(np.float32)
+    ref = common.reference_embeddings(config, state, waves, ratios).cpu()
+    torch.save(state, str(tmp_path / "model.pt"))
+    pred = Predictor(config["run"], model_path=str(tmp_path / "model.pt"),
+                     device="cuda")
+    clips = [waves[i, :n].cpu().numpy() for i, n in enumerate(lens)]
+    pred.predict_batch(clips, batch_size=4)
+    sdpa, added = torch.nn.functional.scaled_dot_product_attention, []
+
+    def measured(q, k, v, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = sdpa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        added.append((torch.cuda.max_memory_allocated() - base, q.shape))
+        return out
+
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        measured)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = pred.predict_batch(clips, batch_size=4)
+    err = common.rel_err(torch.from_numpy(got), ref)
+    assert err.max() < core.limit(config, "embed_rel_err"), err
+    fused = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+             and "fmha_cutlassF" in e.name]
+    assert len(fused) == 6, sorted({e.name for e in prof.events()})[:80]
+    assert len(added) == 6
+    for nbytes, (b, h, t, _) in added:
+        assert (b, h, t) == (4, 4, 798)
+        assert nbytes < b * h * t * t * 4 // 4, nbytes
+
+
+def test_mfa_conformer_on_cuda_sees_the_position_term(cuda, tmp_path):
+    """The cell's seeded LayerNorm gains (0.1 N) leave the softmax nearly
+    uniform, so the cell's limit cannot see the attention's position term.
+    With every gain at 1 + 0.1 N, the published-width model at b4 x 16 s
+    holds the limit through ``predict_batch``, and on the reference's
+    features a zeroed ``linear_pos``, bf16-rounded weights and a dropped
+    key mask (on the three ragged clips) each exceed it."""
+    from benchmark import core, traffic_gen
+    from benchmark.entries import common
+    from benchmark.reference import fbank as ref_fbank
+    from benchmark.weights import model_state
+    from voiceprintrecognition_paddlepaddle_torch.models.conformer import \
+        MFAConformer
+
+    config = core.load_json(os.path.join(ROOT, "benchmark", "configs",
+                                         "mfa_conformer.json"))
+    limit = core.limit(config, "embed_rel_err")
+    padded = 256000
+    lens = np.array([256000, 201000, 150000, 136000])
+    state = {k: 1.0 + v if "LayerNorm_" in k and k.endswith(".weight") else v
+             for k, v in model_state(config, SEED + 26, cuda).items()}
+    waves = traffic_gen.waves(lens, padded, SEED + 26, cuda)
+    ratios = (lens / padded).astype(np.float32)
+    ref = common.reference_embeddings(config, state, waves, ratios).cpu()
+    torch.save(state, str(tmp_path / "model.pt"))
+    pred = Predictor(config["run"], model_path=str(tmp_path / "model.pt"),
+                     device="cuda")
+    got = pred.predict_batch([waves[i, :n].cpu().numpy()
+                              for i, n in enumerate(lens)], batch_size=4)
+    err = common.rel_err(torch.from_numpy(got), ref)
+    assert err.max() < limit, err
+
+    feats = ref_fbank.features(waves, ratios).float()
+    lengths = torch.from_numpy(ratios).to(cuda)
+    args = config["run"]["model_conf"]["model_args"]
+
+    def port(weights, **kw):
+        m = MFAConformer(80, **args).to(cuda)
+        m.load_state_dict(weights)
+        with torch.no_grad():
+            return common.rel_err(m.eval()(feats, **kw), ref)
+
+    no_pos = {k: torch.zeros_like(v) if ".Dense_4." in k else v
+              for k, v in state.items()}
+    rounded = {k: v.bfloat16().float() if v.is_floating_point() else v
+               for k, v in state.items()}
+    assert port(state, lengths=lengths).max() < limit
+    for name, e in (("no linear_pos", port(no_pos, lengths=lengths)),
+                    ("bf16 weights", port(rounded, lengths=lengths)),
+                    ("no key mask", port(state)[1:])):
+        assert e.min() > limit, (name, e)
+
+
 @pytest.mark.parametrize("method,args", [
     ("MFCC", {}), ("MelSpectrogram", {}), ("LogMelSpectrogram", {}),
     ("Spectrogram", {}), ("Fbank", {"n_mels": 80, "window_type": "hamming"}),

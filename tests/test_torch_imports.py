@@ -50,7 +50,8 @@ MODULES = ["predict", "models.trunk_kernel", "models.fcm_kernel",
            "eval_from_paddle", "eval_speaker_diarization",
            "eval_speaker_diarization.infer_data",
            "eval_speaker_diarization.compute_metrics",
-           "eval_speaker_diarization.create_aishell4_test_rttm"]
+           "eval_speaker_diarization.create_aishell4_test_rttm",
+           "models.conformer"]
 
 
 def test_importing_the_port_leaves_jax_out():

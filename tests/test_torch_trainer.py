@@ -240,7 +240,12 @@ def test_cuda_trainer_needs_a_card(lists):
 
 
 BACKBONES = {**{k: dict(v) for k, v in NARROW.items()},
-             "CAMPPlus": {"embd_dim": 16, "init_channels": 16}}
+             "CAMPPlus": {"embd_dim": 16, "init_channels": 16},
+             # the port's own backbone: not in NARROW, which the JAX
+             # cross-checks iterate
+             "MFAConformer": {"embd_dim": 16, "output_size": 16,
+                              "num_blocks": 2, "attention_heads": 2,
+                              "linear_units": 32, "cnn_module_kernel": 5}}
 
 
 @pytest.mark.parametrize("name", sorted(BACKBONES))

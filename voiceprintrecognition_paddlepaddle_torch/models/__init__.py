@@ -1,8 +1,10 @@
 """Model zoo and factory (counterpart of the JAX ``models/__init__.py``):
 the same ``model_conf.model`` / ``model_conf.model_args`` keys select and
-parametrise a backbone."""
+parametrise a backbone. ``MFAConformer`` is the port's own: the JAX package
+has no counterpart."""
 
 from .campplus import CAMPPlus
+from .conformer import MFAConformer
 from .ecapa_tdnn import EcapaTdnn
 from .eres2net import ERes2Net, ERes2NetV2
 from .fc import SpeakerIdentification
@@ -11,14 +13,15 @@ from .resnet_se import ResNetSE
 from .tdnn import TDNN
 
 __all__ = ["build_model", "MODELS", "SpeakerIdentification", "CAMPPlus",
-           "EcapaTdnn", "ERes2Net", "ERes2NetV2", "Res2Net", "ResNetSE",
-           "TDNN"]
+           "EcapaTdnn", "ERes2Net", "ERes2NetV2", "MFAConformer", "Res2Net",
+           "ResNetSE", "TDNN"]
 
 MODELS = {
     "CAMPPlus": CAMPPlus,
     "EcapaTdnn": EcapaTdnn,
     "ERes2Net": ERes2Net,
     "ERes2NetV2": ERes2NetV2,
+    "MFAConformer": MFAConformer,
     "Res2Net": Res2Net,
     "ResNetSE": ResNetSE,
     "TDNN": TDNN,
