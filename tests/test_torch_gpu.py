@@ -230,17 +230,46 @@ def test_resident_clusters_do_not_depend_on_the_valid_count(cuda):
             assert len(counts) == 1, (t16, cs, counts)
 
 
-def test_trunk_phase_times_time_every_phase(cuda, model):
-    """Block 0's phase stamps at the main path's b256 x 3 s: a finite,
-    positive time and cycle count for every phase, each launch counted."""
+# (b, t_raw, ragged, the build's tiles a pass, cluster size): the main
+# path's b256 x 3 s, and b32 x 16 s with valid counts 799 ... 1
+@pytest.mark.parametrize("b,t_raw,ragged,kt,cs", [(256, 298, False, 3, 1),
+                                                 (32, 1598, True, 2, 8)])
+def test_trunk_phase_times_time_every_phase(cuda, model, b, t_raw, ragged,
+                                            kt, cs):
+    """Block 0's phase stamps: a finite, positive time and cycle count for
+    every phase, each launch counted. Its ring counters: the K slices its
+    warpgroups waited for are those of the plan's products over the concat
+    (636 a row pass: each layer's ceil(cin / 64), each transit's slices
+    times its column passes; not the stem's), once for each warpgroup that
+    takes part in a row pass (two in a pass of one tile), over the rows
+    block 0 computes; no more of them found landed than waited for."""
     packed = tk.pack_trunk(model)
-    fcm = model.FCM_0(_fcm_feats(256, 298, cuda))
+    fcm = model.FCM_0(_fcm_feats(b, t_raw, cuda))
+    t_valid, t16 = tk.trunk_geometry(t_raw)
+    tv = (np.linspace(t_valid, 1, b).round().astype(int) if ragged
+          else np.full(b, t_valid))
     before = tk.trunk_stats.launches
-    st = tk.trunk_phase_times(packed, fcm, iters=5)
+    st = tk.trunk_phase_times(packed, fcm, tv if ragged else None, iters=5)
     assert tk.trunk_stats.launches == before + 5
     for name in tk.TRUNK_PHASES:
         assert np.isfinite(st["ms"][name]) and st["ms"][name] > 0, st
         assert st["cycles"][name] > 0, st
+    split, rows = tk.default_split(b, t_raw, cuda)
+    threads, _ = tk.block_launch(rows, t_valid)
+    assert (threads // 128, split) == (kt, cs)
+    plan = tk.trunk_plan()
+    per_pass = (sum(-(-layer["cin"] // 64) for layer in plan["layers"])
+                + sum(-(-blk["c_out"] // 64) * (blk["c_transit"] // 128)
+                      for blk in plan["blocks"]))
+    assert per_pass == 636
+    # block 0 is rank 0 of the cluster that serves the launch's first utterance
+    _, run = tk.trunk_tiles(tv, t16, split, rows)
+    first = tk.launch_order(run)[0]
+    tiles = -(-min(rows, -(-int(tv[first]) // 16) * 16) // 64)
+    warpgroups = sum(max(min(kt, tiles - p), 2) for p in range(0, tiles, kt))
+    assert st["ring_slices"] == per_pass * warpgroups, st
+    assert 0 <= st["ring_landed"] <= st["ring_slices"], st
+    assert st["ring_wait_ns"] >= 0, st
 
 
 def test_trunk_launches_of_different_sizes_from_many_threads(cuda, model):
@@ -278,6 +307,60 @@ def test_trunk_launches_of_different_sizes_from_many_threads(cuda, model):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert not errors and not mismatches, (errors[:3], mismatches[:3])
+
+
+def test_trunk_is_deterministic_while_other_launches_run(cuda, model):
+    """No block barrier sits in the products' K loop: a stage is refilled
+    once every warpgroup has released it, and freshly stored concat columns
+    are copied once every thread has fenced them. A race there shows as
+    drift. 50 launches of each of three shapes give bit-identical stats
+    while another thread launches other sizes on its own stream: a ragged
+    b256 x 398 batch with valid counts over 100-199, as 2-4 s clips give
+    (one block of 208 rows an utterance: passes of three tiles and of one),
+    b32 x 1598 with valid counts 799 ... 1 at clusters of 8 (blocks that
+    own no valid row), and b16 x 98 (one tile a block, which two warpgroups
+    share)."""
+    packed = tk.pack_trunk(model)
+    rng = np.random.RandomState(11)
+
+    def fcm_of(b, t_raw):
+        feats = torch.from_numpy(rng.randn(b, t_raw, 80).astype(np.float32))
+        return model.FCM_0(feats.to(cuda)).to(torch.bfloat16).contiguous()
+
+    cases = [(fcm_of(256, 398), rng.randint(100, 200, 256), None),
+             (fcm_of(32, 1598), np.linspace(799, 1, 32).round().astype(int), 8),
+             (fcm_of(16, 98), None, None)]
+    side = [(fcm_of(1, 398), [150]), (fcm_of(3, 798), [399, 250, 37])]
+    torch.cuda.synchronize()
+    stop, errors = threading.Event(), []
+
+    def other_sizes():
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                while not stop.is_set():
+                    for fcm, tvalids in side:
+                        tk.trunk_stats(packed, fcm, tvalids)
+                    stream.synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    thread = threading.Thread(target=other_sizes)
+    thread.start()
+    drift = []
+    try:
+        for k, (fcm, tvalids, cluster) in enumerate(cases):
+            want = tk._trunk_stats_at(packed, fcm, tvalids, cluster)
+            assert torch.isfinite(want).all()
+            for i in range(50):
+                got = tk._trunk_stats_at(packed, fcm, tvalids, cluster)
+                if not torch.equal(got, want):
+                    drift.append((k, i))
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+    assert not thread.is_alive()
+    assert not errors and not drift, (errors[:3], drift[:5])
 
 
 def _ragged_4s(model, cuda):

@@ -27,10 +27,13 @@
 // K (about 3.3 GB per b256 launch, 1.0 ms at 3.35 TB/s), and every block
 // streams each layer's bf16 weights (about 12 MB per utterance) from L2.
 // On the card what bounds it is the block's serial chain per K slice: the
-// wide BN-ReLU of the staged A slice, a proxy fence and a block barrier
-// before the slice's wgmmas can start (a warp's wgmmas also wait for its
-// own copies in flight, so the warps that issue wgmma issue none), and
-// the 52 layers' CAM work between the products (PERF.md has the split).
+// A slice's copies from a workspace far larger than L2, then the wide
+// BN-ReLU of the staged slice and a proxy fence before the slice's wgmmas
+// can start (a warp's wgmmas also wait for its own copies in flight, so
+// the warps that issue wgmma issue none), and the 52 layers' CAM work
+// between the products (PERF.md has the split). The products' ring
+// therefore runs as far ahead as shared memory allows, and no block
+// barrier sits in their K loop (below).
 //
 // Design: a thread-block cluster of cs blocks per utterance
 // (trunk_kernel.trunk_split picks cs in {1, 2, 4, 8}). Block rank k owns
@@ -69,34 +72,59 @@
 // slices of 64: a stage holds the A slice of all the pass's tiles and one
 // packed weight slice, so each staged weight slice serves every row tile
 // of the pass (one pass for every block of up to 192 rows). The products
-// over the concat fill the ring by TMA: thread 0 issues the A tiles (a 3-D
+// over the concat fill the ring by TMA: one thread issues the A tiles (a 3-D
 // tensor map of the workspace; the hardware writes the swizzle, rows past
 // t16 read as zero) and the weight slice (a bulk copy of a slice that
 // trunk_kernel.pack_trunk laid out pre-swizzled), all completing on the
-// stage's mbarrier, kStages - 2 slices ahead (4 stages up to 128 rows a
-// block, 3 above). Per slice each thread waits
-// on the mbarrier, applies the wide BN-ReLU in place to its A chunks (once
-// per staged slice; columns past K, in the last slice of a cin that is not
-// a multiple of 64, are zeroed, as are the packed weights there), fences
-// its writes to the async proxy that wgmma reads through
-// (fence.proxy.async), waits until its warpgroup's wgmmas of two slices
-// back are done (one slice's stay in flight) and meets the block barrier;
-// then thread 0 refills the stage two slices back and each warpgroup
-// issues its wgmmas. No warp that issues wgmma has a cp.async in flight.
+// stage's full mbarrier by their bytes. Each stage also has an empty
+// mbarrier, which completes once every warpgroup has released the stage:
+// one thread a warpgroup arrives once wgmma_wait shows the warpgroup's
+// wgmmas on it done (in a pass of one tile both warpgroups that share it;
+// warpgroup 0 arrives for those past the pass's tiles, so each slice
+// completes its stage's empty phase once). A pass's first kStages slices
+// are issued at its start, one by lane 0 of each of the first kStages
+// warps; then thread 0 issues slice i + kStages into slice i's stage as
+// soon as that stage's empty mbarrier completes, so TMA runs kStages - 1
+// slices ahead: 4 in the KT = 2 build (5 stages), 2 in KT = 3 (3 stages;
+// Ring has the shared-memory sums). Per slice each thread of a
+// warpgroup waits on the full mbarrier, applies the wide BN-ReLU in place
+// to its A chunks (once per staged slice; columns past K, in the last
+// slice of a cin that is not a multiple of 64, are zeroed, as are the
+// packed weights there), fences its writes to the async proxy that wgmma
+// reads through (fence.proxy.async) and meets a named barrier of its own
+// warpgroup's 128 threads (of the 256 that share a one-tile pass); then
+// the warpgroup issues its wgmmas, waits for those of the slice before
+// (one slice's stay in flight) and releases that slice. No warpgroup waits
+// for another inside the K loop; the block barriers are at a product's
+// start and at the end of each of its passes, after which the CAM phase,
+// the stem's ring, the next pass's first copies and the transit's kept
+// rows reuse shared memory or global columns. No warp that issues wgmma
+// has a cp.async in flight.
 // A transit has 2 or 4 column passes of 128 over the same A: its first
 // pass writes each transformed chunk back over its input rows (a buffer
 // nothing reads after the transit), so the later passes load A ready by
 // TMA and skip the BN-ReLU. The concat is written with ordinary stores
 // (the stem's and the transits' epilogues, the gated appends) and read
-// back by TMA, which goes through the async proxy: every thread fences
-// its stores (fence.proxy.async.global) before the block barrier after
-// which the first copy of those columns is issued. That fence waits for
-// the stores to complete, so it comes as late as it can: a layer's
-// append is read in the last K slice of the next product, so the fence
-// comes a slice or two before it, when the stores have long landed; the
-// stem's and the transits' outputs, read from the first slice on, are
-// fenced at the next product's start, and a transit's kept rows at the
-// end of its first pass.
+// back by TMA, which goes through the async proxy: before the first copy
+// of a product's freshly stored columns is issued, every thread fences
+// its stores (fence.proxy.async.global) and arrives on the ring's fresh
+// mbarrier, which the issuing thread waits on. That fence waits for the
+// stores to complete, so it comes as late as it can: a layer's append is
+// read in the last K slice of the next product, so the fence comes as the
+// loop starts the slice whose release lets that copy go, when the stores
+// have long landed; columns read within the first kStages slices (the
+// stem's and the transits' outputs, the short products' appends) are
+// fenced at the pass's start, and a transit's kept rows at the end of its
+// first pass, before its block barrier.
+// A pass's epilogue (bias, BN-ReLU and mask, in the accumulator's
+// registers) reads its affine before it stores anything, so the loads go
+// out together: a store through a generic pointer between them would make
+// each wait for the one before (a fifth of block 0's time; PERF.md).
+// Counters (TrunkParams.phase, measurement only): thread 0 of each
+// warpgroup of block 0 counts the slices it waits for, those whose copies
+// had landed at its first test of the full mbarrier (the ring's hit share)
+// and the ns it waited; a launch without them reads no clock and makes no
+// atomic for them.
 // The stem (im2col of every other FCM row, zero outside the clip; 2 % of
 // the time) fills its ring with cp.async instead. The layer's wide affine
 // comes with the first slice into shared memory; trunk_weights reads the
@@ -173,8 +201,9 @@ struct TrunkParams {
   const bf16* w_t2;       // 1024 x 512 in wgmma slices
   const float* tbias;     // (3, 512)
   const float* out_aff;   // (2, 512)
-  // null, or (2, kPhases) zeroed u64: block 0 adds the %globaltimer ns
-  // (row 0) and SM clock cycles (row 1) of each phase (trunk_phase_times)
+  // null, or 2 kPhases + kRingCounts zeroed u64: block 0 adds the
+  // %globaltimer ns and then the SM clock cycles of each phase, then the
+  // ring's counters (RingCount; trunk_phase_times)
   unsigned long long* phase;
   int B, T_raw, t_valid, t16;
   int cs;                 // blocks of a cluster per utterance: 1, 2, 4 or 8
@@ -207,19 +236,23 @@ __host__ __device__ constexpr int swz128(int line, int q) {
 __host__ __device__ constexpr int slices_of(int K) { return (K + kKS - 1) / kKS; }
 // The kernel comes in two builds by the row tiles KT a pass holds, one
 // warpgroup a tile: KT = 2 (blocks of R <= 128 rows, 256 threads, a ring of
-// 4 stages) and KT = 3 (R > 128, 384 threads, 3 stages), one block an SM
+// 5 stages) and KT = 3 (R > 128, 384 threads, 3 stages), one block an SM
 // either way. A thread holds one m64n128 fp32 accumulator (64 registers).
-// A stage holds KT tiles' A slices and one weight slice. On an H100 the
-// KT = 2 build runs blocks of 32-112 rows 2-12 % faster than KT = 3 would
-// (its ring copies two slices ahead, not one; PERF.md).
+// A stage holds KT tiles' A slices and one weight slice: 32 KB at KT = 2,
+// 40 KB at KT = 3. The depth is what fits beside x2 and the CAM arrays at
+// the 32 s bucket: 5 x 32 KB + 4 KB + 33 KB + 22 KB = 224.3 KB at KT = 2,
+// 3 x 40 KB + 4 KB + 65 KB + 22 KB = 216.2 KB at KT = 3 (a fourth stage
+// would need 256 KB), of the 227 KB a block may have.
 constexpr int kSmallTiles = 2, kBigTiles = 3;
+constexpr int kMaxStages = 5;
 template <int KT>
 struct Ring {
   static constexpr int kThreads = 128 * KT;
-  static constexpr int kStages = KT == kSmallTiles ? 4 : 3;
+  static constexpr int kStages = KT == kSmallTiles ? 5 : 3;
   static constexpr int kABytes = KT * kTileBytes;
   static constexpr int kStageBytes = kABytes + kBBytes;
   static constexpr int kBytes = kStages * kStageBytes;
+  static_assert(kStages <= kMaxStages, "the ring's mbarriers fit");
 };
 constexpr int kGuard = 2;                     // max dilation
 constexpr int kStemIn = 320, kInit = 128, kBn = 128, kGrowth = 32;
@@ -261,9 +294,11 @@ __host__ __device__ inline size_t small_bytes(int t_valid) {
   return sizeof(float) * seg_cap(t_valid) * (128 + 128 + kHid + kGrowth);
 }
 // shared memory of a block: the ring, a product's wide BN affine, x2, the
-// CAM segment arrays and the ring's mbarriers
+// CAM segment arrays and the ring's mbarriers (byte offsets: a full and an
+// empty one a stage, and the fresh one; wide_pass)
 constexpr int kAbBytes = 2 * kWide * 2;
-constexpr int kBarBytes = 8 * 8;
+constexpr int kBarFull = 0, kBarEmpty = 8 * kMaxStages, kBarFresh = 16 * kMaxStages;
+constexpr int kBarBytes = kBarFresh + 8;
 __host__ __device__ inline size_t smem_bytes(int R, int t_valid) {
   return ring_bytes(R) + kAbBytes + x2_bytes(R) + small_bytes(t_valid) + kBarBytes;
 }
@@ -272,6 +307,11 @@ __host__ __device__ inline size_t smem_bytes(int R, int t_valid) {
 // 0 adds the ns and cycles since its previous lap to the phase's slots.
 enum Phase { kStem, kBottleneck, kCamSums, kLocalConv, kGateMlp, kAppend, kTransits,
              kPooling, kPhases };
+// After the phases, the ring's counters: thread 0 of each warpgroup of
+// block 0 adds each slice of a product over the concat that it waits for,
+// those whose copies had landed when it first tested the stage's mbarrier,
+// and the ns it waited.
+enum RingCount { kRingSlices, kRingLanded, kRingWaitNs, kRingCounts };
 struct Stamp {
   unsigned long long* acc;  // null unless timing is on and this is block 0's thread 0
   unsigned long long ns, clk;
@@ -348,6 +388,9 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
 __device__ __forceinline__ void fence_mbar_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 __device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
@@ -362,6 +405,37 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for a stage's copies. `count` (null unless measuring: block 0,
+// thread 0 of a warpgroup) gets the slice, whether its copies had landed
+// at the first test, and the ns waited (RingCount).
+__device__ __forceinline__ void wait_full(uint32_t bar, uint32_t parity,
+                                          unsigned long long* count) {
+  if (count == nullptr) {
+    mbar_wait(bar, parity);
+    return;
+  }
+  const unsigned long long t0 = Stamp::now();
+  const bool landed = mbar_test(bar, parity);
+  if (!landed) mbar_wait(bar, parity);
+  atomicAdd(count + kRingSlices, 1ull);
+  atomicAdd(count + kRingLanded, landed ? 1ull : 0ull);
+  atomicAdd(count + kRingWaitNs, Stamp::now() - t0);
+}
+// a barrier of `threads` threads (whole warps) under id `id` (0 is
+// __syncthreads'), ordering their shared-memory accesses as it does
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 // TMA: a box of the tensor map at coordinates (c0, c1, c2) into shared
 // memory (rows outside the tensor read as zero), completing on `bar`
@@ -527,6 +601,11 @@ struct StemA {
 // transformed rows back over its input (which nothing reads after the
 // transit), so its later passes read them ready (WideMode).
 enum WideMode { kTransform, kTransformKeep, kKept };
+// the ring's running counts, which give its mbarriers their phases
+struct RingSeq {
+  uint32_t slices;  // slices through the ring (a stage's full and empty phases)
+  uint32_t fresh;   // waits on the fresh mbarrier
+};
 struct WideA {
   static constexpr bool kWideBn = true;
   const CUtensorMap* map;  // the concat workspace, (1024, t16, 2 B)
@@ -574,6 +653,49 @@ struct AccPos {
   __device__ int col(int nb) const { return c0 + 8 * nb + 2 * (lane & 3); }
 };
 
+// Each epilogue first turns the accumulator into its outputs in place,
+// reading the affine as float2 pairs, then stores them: no store comes
+// between the loads, so they go out together instead of one after each
+// store (a store through a generic pointer could alias them), and the
+// functor's fields are read once into registers.
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+// conv bias, BN-ReLU and mask in place: aff is (3, 128) bias, BN a, BN b;
+// rows at or past `valid` become zero
+static_assert(kInit == kBn, "the stem's affine has the bottlenecks' layout");
+template <int NW>
+__device__ __forceinline__ void bias_bn_relu(float (&acc)[NW / 2], const AccPos& ps, int rp,
+                                             const float* aff, int valid) {
+#pragma unroll
+  for (int nb = 0; nb < NW / 8; ++nb) {
+    const int c = ps.col(nb);
+    const float2 bias = ld2(aff + c), scale = ld2(aff + kBn + c), shift = ld2(aff + 2 * kBn + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = 4 * nb + 2 * h;
+      const bool ok = ps.row(rp, h) < valid;
+      acc[k] = ok ? fmaxf((acc[k] + bias.x) * scale.x + shift.x, 0.f) : 0.f;
+      acc[k + 1] = ok ? fmaxf((acc[k + 1] + bias.y) * scale.y + shift.y, 0.f) : 0.f;
+    }
+  }
+}
+// each value pair below `rows` as a bf16 pair at at(row, column)
+template <int NW, class At>
+__device__ __forceinline__ void store_pairs(const float (&acc)[NW / 2], const AccPos& ps, int rp,
+                                            int rows, At at) {
+#pragma unroll
+  for (int nb = 0; nb < NW / 8; ++nb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = ps.row(rp, h);
+      if (row < rows)
+        *reinterpret_cast<__nv_bfloat162*>(at(row, ps.col(nb))) =
+            __floats2bfloat162_rn(acc[4 * nb + 2 * h], acc[4 * nb + 2 * h + 1]);
+    }
+  }
+}
+
 // the stem: conv bias, BN-ReLU, mask -> concat[:, :128]
 struct StemEpi {
   bf16* X;
@@ -582,23 +704,9 @@ struct StemEpi {
   template <int NW>
   __device__ void operator()(float (&acc)[NW / 2], int rp, int) const {
     const AccPos ps(NW);
-#pragma unroll
-    for (int nb = 0; nb < NW / 8; ++nb) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = ps.row(rp, h), c = ps.col(nb);
-        if (row >= nr) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = acc[4 * nb + 2 * h + e] + aff[c + e];
-          v[e] = r0 + row < tv ? fmaxf(y * aff[kInit + c + e] + aff[2 * kInit + c + e], 0.f)
-                               : 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(X + (size_t)(r0 + row) * kWide + c) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
-    }
+    bias_bn_relu<NW>(acc, ps, rp, aff, tv - r0);
+    bf16* const out = X + (size_t)r0 * kWide;
+    store_pairs<NW>(acc, ps, rp, nr, [=](int row, int c) { return out + (size_t)row * kWide + c; });
   }
 };
 
@@ -611,22 +719,11 @@ struct X2Epi {
   template <int NW>
   __device__ void operator()(float (&acc)[NW / 2], int rp, int) const {
     const AccPos ps(NW);
-#pragma unroll
-    for (int nb = 0; nb < NW / 8; ++nb) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = ps.row(rp, h), c = ps.col(nb);
-        if (row >= nr) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = acc[4 * nb + 2 * h + e] + aff[c + e];
-          v[e] = r0 + row < tv ? fmaxf(y * aff[kBn + c + e] + aff[2 * kBn + c + e], 0.f) : 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(x2 + (c >> 3) * ldk + row * 8 + (c & 7)) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
-    }
+    bias_bn_relu<NW>(acc, ps, rp, aff, tv - r0);
+    bf16* const out = x2;
+    const int ld = ldk;
+    store_pairs<NW>(acc, ps, rp, nr,
+                    [=](int row, int c) { return out + (c >> 3) * ld + row * 8 + (c & 7); });
   }
 };
 
@@ -638,19 +735,21 @@ struct TransitEpi {
   template <int NW>
   __device__ void operator()(float (&acc)[NW / 2], int rp, int np) const {
     const AccPos ps(NW);
+    const float* const b = bias + np * kNP;
+    const int valid = tv - r0;
 #pragma unroll
     for (int nb = 0; nb < NW / 8; ++nb) {
+      const float2 bb = ld2(b + ps.col(nb));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = ps.row(rp, h), c = np * kNP + ps.col(nb);
-        if (row >= nr) continue;
-        const bool valid = r0 + row < tv;
-        const float v0 = valid ? acc[4 * nb + 2 * h] + bias[c] : 0.f;
-        const float v1 = valid ? acc[4 * nb + 2 * h + 1] + bias[c + 1] : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(Y + (size_t)(r0 + row) * kWide + c) =
-            __floats2bfloat162_rn(v0, v1);
+        const int k = 4 * nb + 2 * h;
+        const bool ok = ps.row(rp, h) < valid;
+        acc[k] = ok ? acc[k] + bb.x : 0.f;
+        acc[k + 1] = ok ? acc[k + 1] + bb.y : 0.f;
       }
     }
+    bf16* const out = Y + (size_t)r0 * kWide + np * kNP;
+    store_pairs<NW>(acc, ps, rp, nr, [=](int row, int c) { return out + (size_t)row * kWide + c; });
   }
 };
 
@@ -733,37 +832,62 @@ __device__ __noinline__ void stem_pass(const StemA& a, int g0, int rp, int nr, i
 
 // One pass of a product over the concat: C[rows rp.. of the block, 128 np
 // : 128 np + 128] over the pass's nt tiles, one a warpgroup (warpgroups
-// past nt issue no wgmma), K in ks slices of B; `epi` takes each
-// warpgroup's accumulator. Thread 0 fills the ring's stages kStages - 2
-// slices ahead (one slice's wgmmas stay in flight while the next is
-// prepared, so the stage two slices back is the one refilled): the A tiles
-// by TMA in the 128-byte swizzle, the weight slice
-// (and at the first slice of a product the wide affine) by bulk copies,
-// all completing on the stage's mbarrier, so no warp that issues wgmma has
-// a copy of its own in flight. mode: whether the pass transforms A, and
-// keeps it (WideMode). fresh: the first K slice holding concat columns
-// stored since the block last fenced them (-1: none); every thread fences
-// them before the barrier after which that slice's copy is issued.
-// seq: the ring's running slice count, which gives each slice its stage
-// and mbarrier phase; returns it advanced. Ends with a block barrier, so
-// the ring is free.
+// past nt take no part), K in ks slices of B; `epi` takes each
+// warpgroup's accumulator. The ring is a producer/consumer ring of full
+// and empty mbarriers with no block barrier inside the K loop. A slice is
+// issued into its stage by one thread: the A tiles by TMA in the 128-byte
+// swizzle, the weight slice (and at the first slice of a product the wide
+// affine) by bulk copies, all completing on the stage's full mbarrier, so
+// no warp that issues wgmma has a copy of its own in flight. The first
+// kStages slices go at the start, slice j by lane 0 of warp j, all at
+// once; thread 0 issues slice i + kStages into slice i's stage once its
+// empty mbarrier completes, that is once every warpgroup has released
+// slice i: a warpgroup's thread t == 0 arrives after wgmma_wait shows its
+// wgmmas of slice i done (warpgroup 0 arrives for the warpgroups that take
+// no part, so every slice's stage completes its empty phase once with KT
+// arrivals). So TMA runs kStages - 1 slices ahead of the slice whose
+// wgmmas were issued last. Per slice each thread of a warpgroup waits on
+// the full mbarrier, applies the wide BN-ReLU in place to its A chunks,
+// fences its writes to the async proxy that wgmma reads through and meets
+// its warpgroup's named barrier (the two warpgroups' one in a pass of one
+// tile); then the warpgroup issues its wgmmas, waits for those of the
+// slice before (one slice's stay in flight) and releases that slice.
+// mode: whether the pass transforms A, and keeps it (WideMode). fresh: the
+// first K slice holding concat columns stored since the block last fenced
+// them (-1: none): every thread fences its stores
+// (fence.proxy.async.global) and arrives on the ring's fresh mbarrier,
+// which the thread that issues that slice waits on first; a thread does so
+// at the start if the slice is one of the first kStages, else as it
+// starts slice fresh - kStages + 1 (whose end releases slice fresh -
+// kStages and so lets slice fresh go): late, so the stores have long
+// landed. seq: the ring's running counts, which give each mbarrier its
+// phase; returns them advanced. count: the ring's counters (wait_full).
+// Ends with a block barrier, so the ring is free.
 template <int KT, int NW, class Epi>
-__device__ __noinline__ uint32_t wide_pass(const WideA& a, int g0, int rp, int nr, int nt, int ks,
-                                           const bf16* __restrict__ B, int np, const Epi& epi,
-                                           unsigned char* ring, uint32_t bars, uint32_t seq,
-                                           bf16* ab_s, int K, bool ab_load, WideMode mode,
-                                           int fresh) {
+__device__ __noinline__ RingSeq wide_pass(const WideA& a, int g0, int rp, int nr, int nt, int ks,
+                                          const bf16* __restrict__ B, int np, const Epi& epi,
+                                          unsigned char* ring, uint32_t bars, RingSeq seq,
+                                          bf16* ab_s, int K, bool ab_load, WideMode mode,
+                                          int fresh, unsigned long long* count) {
   using RingT = Ring<KT>;
   constexpr int kStages = RingT::kStages;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const bool active = NW == 128 ? wg < nt : wg < 2;
   const int tile = NW == 128 ? wg : 0;
   const uint32_t ring_s = smem_addr(ring);
+  const uint32_t full = bars + kBarFull, empty = bars + kBarEmpty, fresh_bar = bars + kBarFresh;
   // this thread's A chunks: lines l0 + step j of `tile`, columns 8 q..
   const int l0 = NW == 128 ? t >> 3 : (tid & 255) >> 3, step = NW == 128 ? 16 : 32, q = t & 7;
-  const bool stages_a = NW == 128 || tid < 256;
-  auto issue = [&](int i) {  // thread 0
-    const uint32_t s = (seq + i) % kStages, bar = bars + 8 * s;
+  auto stage = [&](int i) { return (seq.slices + i) % kStages; };
+  auto parity = [&](int i) { return ((seq.slices + i) / kStages) & 1; };
+  auto fence_fresh = [&] {
+    fence_proxy_async_global();
+    mbar_arrive(fresh_bar, 1);
+  };
+  auto issue = [&](int i) {
+    if (i >= kStages) mbar_wait(empty + 8 * stage(i), parity(i - kStages));
+    if (i == fresh) mbar_wait(fresh_bar, seq.fresh & 1);
+    const uint32_t s = stage(i), bar = full + 8 * s;
     const uint32_t st = ring_s + s * RingT::kStageBytes;
     const bool with_ab = ab_load && i == 0;
     mbar_arrive_expect(bar, nt * kTileBytes + kBBytes + (with_ab ? 4 * K : 0));
@@ -775,43 +899,55 @@ __device__ __noinline__ uint32_t wide_pass(const WideA& a, int g0, int rp, int n
       bulk_load(smem_addr(ab_s + kWide), a.ab + kWide, 2 * K, bar);
     }
   };
-  if (tid == 0)
-    for (int j = 0; j < kStages - 2 && j < ks; ++j) issue(j);
+  // a warpgroup's release of slice i: warpgroup 0 also for those past nt
+  auto release = [&](int i) {
+    if (t == 0) mbar_arrive(empty + 8 * stage(i), wg == 0 ? 1 + KT - (NW == 128 ? nt : 2) : 1);
+  };
+  const bool fresh_first = fresh >= 0 && fresh < kStages;  // fresh is issued at the start
+  if (fresh >= 0 && (fresh_first || !active)) fence_fresh();
+  // the first kStages slices at once, slice j by lane 0 of warp j
+  if ((tid & 31) == 0 && tid >> 5 < min(kStages, ks)) issue(tid >> 5);
   float acc[NW / 2];
 #pragma unroll
   for (int e = 0; e < NW / 2; ++e) acc[e] = 0.f;
   fence_regs(acc);
-  for (int i = 0; i < ks; ++i) {
-    const uint32_t s = (seq + i) % kStages;
-    unsigned char* st = ring + s * RingT::kStageBytes;
-    mbar_wait(bars + 8 * s, ((seq + i) / kStages) & 1);  // slice i's copies landed
-    if (stages_a && mode != kKept) {
-      const int line = rp + tile * kTile + l0;  // block row of this thread's first chunk
-      a.template transform<NW == 128 ? 4 : 2>(
-          st + tile * kTileBytes, l0, step, q, ab_s + i * kKS + q * 8, i * kKS + q * 8 >= K,
-          mode == kTransformKeep ? a.X + (size_t)(g0 + line) * kWide + i * kKS + q * 8 : nullptr,
-          nr - line);
-      fence_proxy_async();
-    }
-    if (i + kStages - 2 == fresh) fence_proxy_async_global();
-    wgmma_wait<1>();               // this warpgroup's slice i - 2 is done (i - 1 may run)
-    __syncthreads();               // slice i is ready; slice i - 2's stage is free
-    if (tid == 0 && i + kStages - 2 < ks) issue(i + kStages - 2);
-    if (active) {
+  if (active) {
+    for (int i = 0; i < ks; ++i) {
+      if (!fresh_first && i == fresh - kStages + 1) fence_fresh();
+      const uint32_t s = stage(i);
+      unsigned char* st = ring + s * RingT::kStageBytes;
+      wait_full(full + 8 * s, parity(i), count);
+      if (mode != kKept) {
+        const int line = rp + tile * kTile + l0;  // block row of this thread's first chunk
+        a.template transform<NW == 128 ? 4 : 2>(
+            st + tile * kTileBytes, l0, step, q, ab_s + i * kKS + q * 8, i * kKS + q * 8 >= K,
+            mode == kTransformKeep ? a.X + (size_t)(g0 + line) * kWide + i * kKS + q * 8
+                                   : nullptr,
+            nr - line);
+        fence_proxy_async();
+        // the warpgroup's (or the tile's two warpgroups') chunks are in
+        named_sync(NW == 128 ? 1 + wg : 1 + KT, NW == 128 ? 128 : 256);
+      }
       const uint32_t sa = smem_addr(st) + tile * kTileBytes;
       const uint32_t sb = smem_addr(st) + RingT::kABytes + (NW == 128 ? 0 : wg * kTile * 128);
       wgmma_fence();
       mma_slice<NW>(acc, sa, sb);
       wgmma_commit();
+      if (i > 0) {
+        wgmma_wait<1>();  // this warpgroup's slice i - 1 is done (i may run)
+        release(i - 1);
+        if (tid == 0 && i - 1 + kStages < ks) issue(i - 1 + kStages);
+      }
     }
+    wgmma_wait<0>();
+    release(ks - 1);
   }
-  wgmma_wait<0>();
   fence_regs(acc);
   if (active) epi.template operator()<NW>(acc, rp, np);
   fence_proxy_async();  // this thread's ring accesses before the next TMA writes
   if (mode == kTransformKeep) fence_proxy_async_global();  // the kept rows
   __syncthreads();
-  return seq + ks;
+  return RingSeq{seq.slices + ks, seq.fresh + (fresh >= 0 ? 1u : 0u)};
 }
 
 // C[rows, 128 np : 128 np + 128] = A[rows, 0:K] @ B[0:K, same] for each
@@ -822,16 +958,14 @@ __device__ __noinline__ uint32_t wide_pass(const WideA& a, int g0, int rp, int n
 // and of b) is staged into ab_s once for all passes; with several column
 // passes the first transforms A and keeps it, the others read it kept.
 // fresh: as in wide_pass, for the first pass (the later ones come after
-// it). Returns the ring's slice count advanced.
+// it). Returns the ring's counts advanced.
 template <int KT, class A, class Epi>
-__device__ uint32_t gemm(const A& a, int g0, int nr, int K, const bf16* __restrict__ Bp,
-                         int npass, const Epi& epi, unsigned char* ring, bf16* ab_s, uint32_t bars,
-                         uint32_t seq, int fresh = -1) {
+__device__ RingSeq gemm(const A& a, int g0, int nr, int K, const bf16* __restrict__ Bp,
+                        int npass, const Epi& epi, unsigned char* ring, bf16* ab_s, uint32_t bars,
+                        RingSeq seq, int fresh = -1, unsigned long long* count = nullptr) {
   const int ks = slices_of(K);
   if constexpr (A::kWideBn) {
     fence_proxy_async();  // the block's accesses of the ring and ab_s before TMA writes them
-    // fresh rows that the first pass copies before its loop
-    if (fresh >= 0 && fresh < Ring<KT>::kStages - 2) fence_proxy_async_global();
     __syncthreads();
   }
   bool first = true;
@@ -843,9 +977,9 @@ __device__ uint32_t gemm(const A& a, int g0, int nr, int K, const bf16* __restri
       // a pass of one tile splits its columns over two warpgroups
       if constexpr (A::kWideBn)
         seq = nt == 1 ? wide_pass<KT, 64>(a, g0, rp, nr, nt, ks, B, np, epi, ring, bars, seq,
-                                          ab_s, K, first, mode, first ? fresh : -1)
+                                          ab_s, K, first, mode, first ? fresh : -1, count)
                       : wide_pass<KT, 128>(a, g0, rp, nr, nt, ks, B, np, epi, ring, bars, seq,
-                                           ab_s, K, first, mode, first ? fresh : -1);
+                                           ab_s, K, first, mode, first ? fresh : -1, count);
       else if (nt == 1)
         stem_pass<KT, 64>(a, g0, rp, nr, nt, ks, B, epi, ring);
       else
@@ -902,13 +1036,19 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
   float* gate = c1 + segs * kHid;     // (segs, 32), bf16-rounded values
   const uint32_t bars = smem_addr(gate + segs * kGrowth);  // the ring's mbarriers
   if (tid == 0) {
-    for (int s = 0; s < Ring<KT>::kStages; ++s) mbar_init(bars + 8 * s, 1);
+    for (int s = 0; s < Ring<KT>::kStages; ++s) {
+      mbar_init(bars + kBarFull + 8 * s, 1);    // the issuing thread's expect_tx
+      mbar_init(bars + kBarEmpty + 8 * s, KT);  // a release a warpgroup
+    }
+    mbar_init(bars + kBarFresh, kThreads);      // every thread's fence
     fence_mbar_init();
   }
   __syncthreads();
-  uint32_t seq = 0;  // slices through the ring so far
+  RingSeq seq{0, 0};  // the ring's running counts
   Stamp stamp;
   stamp.start(p.phase);
+  unsigned long long* const ring_count =
+      p.phase != nullptr && blockIdx.x == 0 && (tid & 127) == 0 ? p.phase + 2 * kPhases : nullptr;
   const int tv = min(max(p.tvalid[b], 1), p.t_valid);
   // this block's rows [r0, r1), valid rows [r0, rv) and computed rows
   // [r0, r0 + nc): the valid ones rounded up to 16 (r0 is a multiple of 16)
@@ -958,7 +1098,7 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
       seq = gemm<KT>(WideA{&args.ws, cur * p.B + b, p.wide_ab + (size_t)layer * 2 * kWide, X}, r0,
                      nc, cin, p.w_lin1 + lin1_off * kBn, 1,
                      X2Epi{x2, ldk, p.lin1_aff + (size_t)layer * 3 * kBn, r0, nc, tv}, ring,
-                     ab_s, bars, seq, li == 0 ? 0 : slices_of(cin) - 1);
+                     ab_s, bars, seq, li == 0 ? 0 : slices_of(cin) - 1, ring_count);
       lin1_off += slices_of(cin) * kKS;
 
       // the local conv's and the gate MLP's weights into the ring, in
@@ -1135,7 +1275,7 @@ campplus_trunk_kernel(const __grid_constant__ KernelArgs args) {
                          X},
                    r0, nc, cw, wt, cw / 2 / kNP,
                    TransitEpi{bufs[cur ^ 1], p.tbias + (size_t)blk * kFinal, r0, nc, tv}, ring,
-                   ab_s, bars, seq, slices_of(cw) - 1);
+                   ab_s, bars, seq, slices_of(cw) - 1, ring_count);
     cur ^= 1;
     c_in = cw / 2;
     stamp.lap(kTransits);

@@ -66,7 +66,8 @@ __all__ = ["trunk_plan", "pack_trunk", "trunk_weights", "lin1_offsets",
            "trunk_stats_reference", "trunk_stats", "trunk_phase_times",
            "campplus_embed_fast", "make_campplus_masked_embed_fn",
            "MaskedEmbedFn",
-           "MAX_T_RAW", "SMEM_MAX_T16", "CLUSTER_SIZES", "TRUNK_PHASES"]
+           "MAX_T_RAW", "SMEM_MAX_T16", "CLUSTER_SIZES", "TRUNK_PHASES",
+           "RING_COUNTS"]
 
 SEG_LEN = 100           # CAM segment pooling window
 FCM_DIM = 320           # 32 channels x 80/8 frequencies
@@ -542,22 +543,32 @@ def _trunk_stats_at(packed, fcm_out, tvalids, cluster):
 # the phases block 0 of a launch times (csrc Phase, in order)
 TRUNK_PHASES = ("stem", "bottleneck", "cam_sums", "local_conv", "gate_mlp",
                 "append", "transits", "pooling")
+# the ring's counters that follow them (csrc RingCount, in order)
+RING_COUNTS = ("ring_slices", "ring_landed", "ring_wait_ns")
 
 
 def trunk_phase_times(packed, fcm_out, tvalids=None, *, iters=10):
     """Where block 0's time goes, on a CUDA tensor at the default split:
     ``iters`` launches with the kernel's phase stamps on, ``{"ms": {phase:
-    ms}, "cycles": {phase: SM cycles}}`` per launch (``%globaltimer`` and
+    ms}, "cycles": {phase: SM cycles}, "ring_slices": ..., "ring_landed":
+    ..., "ring_wait_ns": ...}`` per launch (``%globaltimer`` and
     ``clock64`` deltas of block 0's thread 0, summed over the layers).
-    Each launch counts in ``trunk_stats.launches``."""
+    The ring's counters come from thread 0 of each warpgroup of block 0:
+    the K slices of the products over the concat that it waited for (the
+    stem's are not counted), those whose copies had landed when it first
+    tested the stage's mbarrier, and the ns it waited on them; their
+    ratio is the ring's hit share. Each launch counts in
+    ``trunk_stats.launches``."""
     _check_call(fcm_out, None)
-    acc = torch.zeros((2, len(TRUNK_PHASES)), dtype=torch.int64,
+    n = len(TRUNK_PHASES)
+    acc = torch.zeros(2 * n + len(RING_COUNTS), dtype=torch.int64,
                       device=fcm_out.device)
     for _ in range(iters):
         _launch(packed, fcm_out, tvalids, None, acc)
     acc = acc.cpu().double() / iters
-    return {"ms": dict(zip(TRUNK_PHASES, (acc[0] / 1e6).tolist())),
-            "cycles": dict(zip(TRUNK_PHASES, acc[1].tolist()))}
+    return {"ms": dict(zip(TRUNK_PHASES, (acc[:n] / 1e6).tolist())),
+            "cycles": dict(zip(TRUNK_PHASES, acc[n:2 * n].tolist())),
+            **dict(zip(RING_COUNTS, acc[2 * n:].tolist()))}
 
 
 def _check_call(fcm_out, cluster):
